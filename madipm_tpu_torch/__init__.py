@@ -1,12 +1,14 @@
-"""madipm_tpu_torch — the Mehrotra predictor-corrector LP solver of
-``madipm_tpu``, ported to PyTorch and CUDA.
+"""madipm_tpu_torch — the Mehrotra predictor-corrector LP and convex-QP
+solver of ``madipm_tpu``, ported to PyTorch and CUDA.
 
-This first slice runs the batched dense-LP path on the NORMAL KKT system:
-``madipm(lp)`` and ``madipm_batch(models)``, with the factor of the
-normal matrix either from ``torch.linalg`` (CHOLESKY) or, for
-CHOLESKY_INV, from a hand-written CUDA kernel (``csrc/chol_inv.cu``,
-the port of the JAX package's Pallas ``pallas_chol_inv``).  The package
-imports torch and never jax.
+It runs the batched dense path, ``madipm(model)`` and
+``madipm_batch(models)``, on every dense KKT system: NORMAL (LPs),
+CONDENSED (K1) and AUGMENTED / SCALED_AUGMENTED (K2 / K2.5).  The factor
+of an SPD system comes from ``torch.linalg`` (CHOLESKY) or from the
+hand-written CUDA kernels of ``csrc/chol_inv.cu``: (L, L^-1) for
+CHOLESKY_INV and L alone for CHOLESKY with ``use_pallas=True``, the ports
+of the JAX package's Pallas ``pallas_chol_inv`` and ``pallas_cholesky``.
+The package imports torch and never jax.
 """
 
 from .api import MPCSolver, madipm

@@ -20,8 +20,13 @@ from .utils.status import Status
 
 
 def default_device() -> torch.device:
-    """The first CUDA device when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The first CUDA device.  Without one this raises: the CPU is taken
+    only when the caller asks for it with ``device="cpu"``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            'no CUDA device found; pass device="cpu" to solve on the CPU'
+        )
+    return torch.device("cuda")
 
 
 def _ensure_fp32_matmul():
@@ -149,10 +154,11 @@ class MPCSolver:
 
 
 def madipm(model: QuadraticModel, **options) -> IPMStats:
-    """Solve an LP with the Mehrotra predictor-corrector interior-point
-    method.  ``device`` (default: CUDA when available) and ``dtype`` go to
-    :class:`MPCSolver`, the rest are IPMOptions.  A maximization model is
-    negated on entry and its objective flipped back."""
+    """Solve an LP or a convex QP with the Mehrotra predictor-corrector
+    interior-point method.  ``device`` (default: the first CUDA device;
+    without one, ``device="cpu"`` must be given) and ``dtype`` go to
+    :class:`MPCSolver`, the rest are IPMOptions.  A maximization model
+    (concave Q) is negated on entry and its objective flipped back."""
     if not model.minimize:
         model = QuadraticModel(
             c=-model.c,

@@ -1,21 +1,35 @@
-// (L, L^-1) of a stack of SPD matrices, hand-written for Hopper (sm_90a).
+// Cholesky factors of a stack of SPD matrices, hand-written for Hopper
+// (sm_90a).  Two entry points share one blocked sweep:
 //
-// Replaces madipm_tpu/ops/pallas_chol.py::pallas_chol_inv (kernel body
-// _chol_inv_kernel + _factor_sweep): the factor of the Jacobi-scaled
-// normal matrix that the NORMAL CHOLESKY_INV path computes on every IPM
-// iteration (ops/kkt.py factorize).  Output semantics are the TPU
-// kernel's: L lower, Linv = L^-1 lower, both with the upper triangle
-// zeroed; a pivot <= 0 (S not SPD) turns into NaN, which propagates and
-// trips the x100 regularization retry (ops/linalg.cholesky_is_ok).
+//   madipm_chol_inv_*  (L, L^-1).  Replaces
+//     madipm_tpu/ops/pallas_chol.py::pallas_chol_inv (kernel body
+//     _chol_inv_kernel + _factor_sweep): the factor of the Jacobi-scaled
+//     normal (NORMAL) or condensed (CONDENSED) matrix that the CHOLESKY_INV
+//     path computes on every IPM iteration (ops/kkt.py factorize).
+//   madipm_cholesky_*  L only.  Replaces
+//     madipm_tpu/ops/pallas_chol.py::pallas_cholesky (kernel body
+//     _chol_kernel + _factor_sweep): the factor the CHOLESKY path takes
+//     with use_pallas=True.  It runs the sweep and zeroes the upper
+//     triangle; the blocked inversion is skipped, and no L^-1 buffer
+//     exists: the one NB x NB inverse tile the panel product needs lives in
+//     a (B, NB, NB) scratch that every panel step overwrites.
 //
-// What bounds it on this card.  Per instance the factor plus the
-// triangular inverse cost ~2/3 N^3 flops; at B=8, N=1024 that is ~5.7
-// GFLOP per call, far below a millisecond at the fp32 or fp64 FMA rate.
-// The sweep is sequential over N/NB panels, and each panel step reads and
-// rewrites the trailing lower triangle (~3*B*N^2 words per panel at the
-// start, shrinking to zero), so what bounds a simple design is that
-// traffic through L2/HBM plus the launch chain (3 launches per panel, one
-// per block row of the inverse), not the arithmetic.
+// Output semantics are the TPU kernels': L lower (and Linv = L^-1 lower),
+// upper triangle zeroed; a pivot <= 0 (S not SPD) turns into NaN, which
+// propagates and trips the x100 regularization retry
+// (ops/linalg.cholesky_is_ok).
+//
+// What bounds them on this card.  Per instance the factor costs N^3/3
+// flops and the triangular inverse another N^3/3; at B=8, N=1024 that is
+// ~2.9 GFLOP (factor) or ~5.7 GFLOP (both) per call against 2 (or 3)
+// B*N^2 words that must move: compute-bound on paper, well under a
+// millisecond at the fp32 or fp64 FMA rate.  In fact the sweep is
+// sequential over N/NB panels, and each panel step reads and rewrites the
+// trailing lower triangle (~3*B*N^2 words per panel at the start,
+// shrinking to zero), so what bounds a simple design is that traffic
+// through L2/HBM plus the launch chain (3 launches per panel, and for the
+// inverse one more per block row), not the arithmetic.  The factor-only
+// entry drops the inverse rows, the largest share of the launch chain.
 //
 // The design keeps it simple and correct first:
 //   - the host loops over panels of width NB=32, one launch per step;
@@ -25,13 +39,14 @@
 //     by column substitution (8 KB fp64 per tile, no dynamic smem opt-in);
 //   - panel_kernel:    L21 = S21 * Wkk^T            (64-row tiles);
 //   - trailing_kernel: S22 -= L21 * L21^T, lower 64x64 tiles only;
-//   - inverse_kernel, block row by block row:
+//   - inverse_kernel (chol_inv only), block row by block row:
 //       Linv[i,k] = -Wii * sum_{k<=j<i} L[i,j] * Linv[j,k]   (all k < i at once);
 //   - every product goes through tile_gemm, a shared-memory tiled GEMM.
 // wgmma, TMA and a single persistent kernel are later work.
 //
 // Plain C interface for ctypes: pointers to contiguous (B, N, N) device
-// buffers, N a multiple of NB; the call enqueues on `stream`, does not
+// buffers (the factor-only entry's third buffer is its (B, NB, NB)
+// scratch), N a multiple of NB; the call enqueues on `stream`, does not
 // synchronize, and returns the first cudaGetLastError() that is not 0.
 
 #include <cuda_runtime.h>
@@ -81,14 +96,26 @@ __device__ __forceinline__ void tile_gemm(T (&acc)[TM / 16][TN / 16],
   }
 }
 
-// Factor and invert the diagonal tile at (j0, j0); Lkk -> L, Wkk -> W.
+// Where the inverse of the current diagonal tile is kept: instance z's tile
+// starts at W + z*batch + j0*(ld + 1) and has row stride ld.  For (L, L^-1)
+// that is the tile's own place in the N x N inverse (batch = N*N, ld = N);
+// for the factor alone a scratch tile (batch = NB*NB, ld = NB, j0 = 0).
 template <typename T>
-__global__ void __launch_bounds__(THREADS) diag_kernel(T* L, T* W, int N, int j0) {
+struct TileW {
+  T* W;
+  size_t batch;
+  int ld;
+  int j0;
+  __device__ T* tile(int z) const { return W + z * batch + (size_t)j0 * (ld + 1); }
+};
+
+// Factor and invert the diagonal tile at (j0, j0); Lkk -> L, Wkk -> tw.
+template <typename T>
+__global__ void __launch_bounds__(THREADS) diag_kernel(T* L, TileW<T> tw, int N, int j0) {
   __shared__ T s[NB][NB + 1];
   __shared__ T w[NB][NB + 1];
-  const size_t base = (size_t)blockIdx.z * N * N;
-  T* Lb = L + base;
-  T* Wb = W + base;
+  T* Lb = L + (size_t)blockIdx.z * N * N;
+  T* Wt = tw.tile(blockIdx.z);
   const int tid = threadIdx.x;
   for (int idx = tid; idx < NB * NB; idx += THREADS) {
     const int r = idx / NB, c = idx % NB;
@@ -123,25 +150,22 @@ __global__ void __launch_bounds__(THREADS) diag_kernel(T* L, T* W, int N, int j0
   __syncthreads();
   for (int idx = tid; idx < NB * NB; idx += THREADS) {
     const int r = idx / NB, c = idx % NB;
-    const size_t o = (size_t)(j0 + r) * N + j0 + c;
-    Lb[o] = c <= r ? s[r][c] : T(0);
-    Wb[o] = w[r][c];
+    Lb[(size_t)(j0 + r) * N + j0 + c] = c <= r ? s[r][c] : T(0);
+    Wt[(size_t)r * tw.ld + c] = w[r][c];
   }
 }
 
 // L21 = S21 * Wkk^T for the rows below panel j0, in place.  Each CTA reads
 // its whole 64 x NB input tile (a single K chunk) before it writes.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) panel_kernel(T* L, const T* W, int N, int j0) {
+__global__ void __launch_bounds__(THREADS) panel_kernel(T* L, TileW<T> tw, int N, int j0) {
   __shared__ T sa[TILE][NB + 1];
   __shared__ T sb[NB][NB + 1];
-  const size_t base = (size_t)blockIdx.z * N * N;
-  T* Lb = L + base;
-  const T* Wb = W + base;
+  T* Lb = L + (size_t)blockIdx.z * N * N;
   const int r0 = j0 + NB + blockIdx.x * TILE;
   const int M = min(TILE, N - r0);
   T acc[TILE / 16][NB / 16] = {};
-  tile_gemm<T, TILE, NB>(acc, Lb + (size_t)r0 * N + j0, N, 1, Wb + (size_t)j0 * N + j0, N, 1,
+  tile_gemm<T, TILE, NB>(acc, Lb + (size_t)r0 * N + j0, N, 1, tw.tile(blockIdx.z), tw.ld, 1,
                          M, NB, NB, sa, sb);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
@@ -213,6 +237,7 @@ __global__ void __launch_bounds__(THREADS) inverse_kernel(const T* L, T* W, int 
     }
 }
 
+// Zero the upper triangle of L and, where there is one, of W.
 template <typename T>
 __global__ void __launch_bounds__(THREADS) zero_upper_kernel(T* L, T* W, int N) {
   const size_t base = (size_t)blockIdx.z * N * N;
@@ -221,7 +246,7 @@ __global__ void __launch_bounds__(THREADS) zero_upper_kernel(T* L, T* W, int N) 
        idx += (size_t)gridDim.x * THREADS) {
     if (idx % N > idx / N) {
       L[base + idx] = T(0);
-      W[base + idx] = T(0);
+      if (W != nullptr) W[base + idx] = T(0);
     }
   }
 }
@@ -232,34 +257,61 @@ __global__ void __launch_bounds__(THREADS) zero_upper_kernel(T* L, T* W, int N) 
     if (e_ != cudaSuccess) return (int)e_;      \
   } while (0)
 
+// Copy S into L and run the right-looking blocked sweep in place: per panel
+// the diagonal tile is factored and inverted, the panel below it becomes
+// panel * Wkk^T and the trailing lower triangle is updated.  With
+// ``full_inverse`` W is the (B, N, N) inverse and each Wkk lands on its
+// diagonal; otherwise W is a (B, NB, NB) scratch tile.
 template <typename T>
-int chol_inv(const T* S, T* L, T* W, int B, int N, cudaStream_t st) {
+int factor_sweep(const T* S, T* L, T* W, bool full_inverse, int B, int N, cudaStream_t st) {
   if (B <= 0 || N <= 0 || N % NB != 0 || B > 65535) return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaMemcpyAsync(L, S, (size_t)B * N * N * sizeof(T),
                                         cudaMemcpyDeviceToDevice, st);
   if (e != cudaSuccess) return (int)e;
-  const int nb = N / NB;
-  for (int p = 0; p < nb; ++p) {
-    const int j0 = p * NB, rows = N - j0 - NB;
-    diag_kernel<T><<<dim3(1, 1, B), THREADS, 0, st>>>(L, W, N, j0);
+  for (int j0 = 0; j0 < N; j0 += NB) {
+    const int rows = N - j0 - NB;
+    const TileW<T> tw = full_inverse ? TileW<T>{W, (size_t)N * N, N, j0}
+                                     : TileW<T>{W, (size_t)NB * NB, NB, 0};
+    diag_kernel<T><<<dim3(1, 1, B), THREADS, 0, st>>>(L, tw, N, j0);
     RETURN_IF_ERROR();
     if (rows > 0) {
       const int nt = (rows + TILE - 1) / TILE;
-      panel_kernel<T><<<dim3(nt, 1, B), THREADS, 0, st>>>(L, W, N, j0);
+      panel_kernel<T><<<dim3(nt, 1, B), THREADS, 0, st>>>(L, tw, N, j0);
       RETURN_IF_ERROR();
       trailing_kernel<T><<<dim3(nt, nt, B), THREADS, 0, st>>>(L, N, j0);
       RETURN_IF_ERROR();
     }
   }
-  for (int i = 1; i < nb; ++i) {
-    inverse_kernel<T><<<dim3(i, 1, B), THREADS, 0, st>>>(L, W, N, i);
-    RETURN_IF_ERROR();
-  }
+  return 0;
+}
+
+template <typename T>
+int zero_upper(T* L, T* W, int B, int N, cudaStream_t st) {
   const size_t nn = (size_t)N * N;
   const int gx = (int)((nn + THREADS - 1) / THREADS < 1024 ? (nn + THREADS - 1) / THREADS : 1024);
   zero_upper_kernel<T><<<dim3(gx, 1, B), THREADS, 0, st>>>(L, W, N);
   RETURN_IF_ERROR();
   return 0;
+}
+
+template <typename T>
+int chol_inv(const T* S, T* L, T* W, int B, int N, cudaStream_t st) {
+  const int rc = factor_sweep<T>(S, L, W, true, B, N, st);
+  if (rc != 0) return rc;
+  for (int i = 1; i < N / NB; ++i) {
+    inverse_kernel<T><<<dim3(i, 1, B), THREADS, 0, st>>>(L, W, N, i);
+    RETURN_IF_ERROR();
+  }
+  return zero_upper<T>(L, W, B, N, st);
+}
+
+// L only: the sweep and the zeroed upper triangle.  ``Wtile`` is a
+// (B, NB, NB) scratch; no inverse row is computed.
+template <typename T>
+int cholesky(const T* S, T* L, T* Wtile, int B, int N, cudaStream_t st) {
+  const int rc = factor_sweep<T>(S, L, Wtile, false, B, N, st);
+  if (rc != 0) return rc;
+  return zero_upper<T>(L, static_cast<T*>(nullptr), B, N, st);
 }
 
 }  // namespace
@@ -272,4 +324,14 @@ extern "C" int madipm_chol_inv_f32(const float* S, float* L, float* W, int B, in
 extern "C" int madipm_chol_inv_f64(const double* S, double* L, double* W, int B, int N,
                                    void* stream) {
   return chol_inv<double>(S, L, W, B, N, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int madipm_cholesky_f32(const float* S, float* L, float* Wtile, int B, int N,
+                                   void* stream) {
+  return cholesky<float>(S, L, Wtile, B, N, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int madipm_cholesky_f64(const double* S, double* L, double* Wtile, int B, int N,
+                                   void* stream) {
+  return cholesky<double>(S, L, Wtile, B, N, static_cast<cudaStream_t>(stream));
 }

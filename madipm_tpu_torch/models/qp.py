@@ -390,6 +390,26 @@ class TorchQP:
         A_eff = self.A * self.free_mask.unsqueeze(-2)
         return self.row_mask & (torch.sum(A_eff * A_eff, dim=-1) > 0)
 
+    def qmatvec(self, x: torch.Tensor) -> torch.Tensor:
+        """Q @ x per lane (zeros for an LP)."""
+        if self.Q is None:
+            return torch.zeros_like(x)
+        return torch.bmm(self.Q, x.unsqueeze(-1)).squeeze(-1)
+
+    def assemble_ata(self, w: torch.Tensor, factor_dtype: torch.dtype) -> torch.Tensor:
+        """A' diag(w) A over free columns per lane, in the factor dtype
+        (the K1 condensed assembly; ``w`` (B, m) is the live-row indicator)."""
+        Af = (self.A * self.free_mask.unsqueeze(-2)).to(factor_dtype)
+        Aw = Af * w.to(factor_dtype).unsqueeze(-1)
+        return torch.matmul(Aw.mT, Af)
+
+    def add_quad(self, C: torch.Tensor, factor_dtype: torch.dtype) -> torch.Tensor:
+        """C + Q masked to free rows and columns (C itself for an LP)."""
+        if self.Q is None:
+            return C
+        free = self.free_mask
+        return C + (self.Q * free.unsqueeze(-2) * free.unsqueeze(-1)).to(factor_dtype)
+
 
 def pad_to_device(
     qp: QuadraticModel,

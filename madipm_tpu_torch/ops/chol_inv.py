@@ -1,15 +1,19 @@
-"""(L, L^-1) of SPD matrices: the hand-written CUDA kernel and its wrapper.
+"""Cholesky factors of SPD matrices: the hand-written CUDA kernels and their
+wrappers.
 
-The kernel (``csrc/chol_inv.cu``) replaces
-``madipm_tpu/ops/pallas_chol.py::pallas_chol_inv``; its source note says
-what bounds it on an H100 and how it is laid out.  It is compiled with
-``nvcc`` at first use into ``madipm_tpu_torch/_build/`` (a shared library
-with a plain C interface, loaded with ``ctypes``), keyed by a hash of the
-source and flags so that an edit rebuilds.
+``csrc/chol_inv.cu`` holds two entry points over one blocked sweep:
+(L, L^-1), which replaces
+``madipm_tpu/ops/pallas_chol.py::pallas_chol_inv``, and L alone, which
+replaces ``pallas_cholesky``; the source note says what bounds them on an
+H100 and how they are laid out.  The file is compiled with ``nvcc`` at
+first use into ``madipm_tpu_torch/_build/`` (a shared library with a plain
+C interface, loaded with ``ctypes``), keyed by a hash of the source and
+flags so that an edit rebuilds.
 
-:func:`chol_inv` launches the kernel for a CUDA tensor and runs the plain
-torch version (``ops/block_chol.chol_inv``) for a CPU tensor; a CUDA
-tensor never falls back.  ``launches`` counts kernel launches.
+:func:`chol_inv` and :func:`cholesky` launch their kernel for a CUDA tensor
+and run the plain torch version (``ops/block_chol``) for a CPU tensor; a
+CUDA tensor never falls back.  ``launches`` and ``cholesky_launches`` count
+the kernel launches of each.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ PANEL = 32
 
 #: number of times :func:`chol_inv` launched the CUDA kernel
 launches = 0
+#: number of times :func:`cholesky` launched the CUDA kernel
+cholesky_launches = 0
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc" / "chol_inv.cu"
@@ -75,7 +81,8 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for name in ("madipm_chol_inv_f32", "madipm_chol_inv_f64"):
+        for name in ("madipm_chol_inv_f32", "madipm_chol_inv_f64",
+                     "madipm_cholesky_f32", "madipm_cholesky_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -83,36 +90,62 @@ def _load():
     return _lib
 
 
+def _stack_for_kernel(S: torch.Tensor, name: str) -> torch.Tensor:
+    """Check what the kernels take and return ``S`` as a (B, N, N) stack."""
+    if S.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {S.device}")
+    if S.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: dtype must be float32 or float64, got {S.dtype}")
+    if S.ndim not in (2, 3) or S.shape[-1] != S.shape[-2]:
+        raise ValueError(f"{name}: expected (N,N) or (B,N,N), got {tuple(S.shape)}")
+    n = S.shape[-1]
+    if n == 0 or n % PANEL != 0:
+        raise ValueError(f"{name}: N={n} must be a positive multiple of {PANEL}")
+    if not S.is_contiguous():
+        raise ValueError(f"{name}: S must be contiguous")
+    S3 = S.unsqueeze(0) if S.ndim == 2 else S
+    if S3.shape[0] == 0:
+        raise ValueError(f"{name}: empty batch")
+    return S3
+
+
+def _launch(fn_name: str, S3: torch.Tensor, L: torch.Tensor, W: torch.Tensor):
+    """Enqueue one kernel call on the current stream of ``S3``'s device."""
+    suffix = "f32" if S3.dtype == torch.float32 else "f64"
+    fn = getattr(_load(), f"madipm_{fn_name}_{suffix}")
+    with torch.cuda.device(S3.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(S3.data_ptr(), L.data_ptr(), W.data_ptr(), S3.shape[0], S3.shape[-1], stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: CUDA kernel launch failed with cudaError {rc}")
+
+
 def chol_inv(S: torch.Tensor):
     """(L, L^-1) of SPD ``S`` ((N,N) or (B,N,N)), upper triangles zero;
     NaN where S is not SPD.  CPU tensors take the plain version."""
     if S.device.type == "cpu":
         return block_chol.chol_inv(S)
-    if S.device.type != "cuda":
-        raise ValueError(f"chol_inv: unsupported device {S.device}")
-    if S.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"chol_inv: dtype must be float32 or float64, got {S.dtype}")
-    if S.ndim not in (2, 3) or S.shape[-1] != S.shape[-2]:
-        raise ValueError(f"chol_inv: expected (N,N) or (B,N,N), got {tuple(S.shape)}")
-    n = S.shape[-1]
-    if n == 0 or n % PANEL != 0:
-        raise ValueError(f"chol_inv: N={n} must be a positive multiple of {PANEL}")
-    if not S.is_contiguous():
-        raise ValueError("chol_inv: S must be contiguous")
-    S3 = S.unsqueeze(0) if S.ndim == 2 else S
-    if S3.shape[0] == 0:
-        raise ValueError("chol_inv: empty batch")
+    S3 = _stack_for_kernel(S, "chol_inv")
     L = torch.empty_like(S3)
     W = torch.empty_like(S3)
-    lib = _load()
-    fn = lib.madipm_chol_inv_f32 if S.dtype == torch.float32 else lib.madipm_chol_inv_f64
-    with torch.cuda.device(S.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(S3.data_ptr(), L.data_ptr(), W.data_ptr(), S3.shape[0], n, stream)
-    if rc != 0:
-        raise RuntimeError(f"chol_inv: CUDA kernel launch failed with cudaError {rc}")
+    _launch("chol_inv", S3, L, W)
     global launches
     launches += 1
     if S.ndim == 2:
         return L[0], W[0]
     return L, W
+
+
+def cholesky(S: torch.Tensor) -> torch.Tensor:
+    """L of SPD ``S`` ((N,N) or (B,N,N)), upper triangle zero; NaN where S
+    is not SPD.  No inverse is formed.  CPU tensors take the plain version."""
+    if S.device.type == "cpu":
+        return block_chol.cholesky(S)
+    S3 = _stack_for_kernel(S, "cholesky")
+    L = torch.empty_like(S3)
+    # the one inverted diagonal tile per instance that the panel step reads
+    tile = torch.empty(S3.shape[0], PANEL, PANEL, dtype=S3.dtype, device=S3.device)
+    _launch("cholesky", S3, L, tile)
+    global cholesky_launches
+    cholesky_launches += 1
+    return L[0] if S.ndim == 2 else L

@@ -86,8 +86,10 @@ def batched_stats(models: Sequence[QuadraticModel], scale, state: IPMState,
 
 def madipm_batch(models: Sequence[QuadraticModel], pad_multiple: int = 128,
                  dtype: torch.dtype = torch.float64, device=None, **options) -> List[IPMStats]:
-    """Solve many LP instances as the lanes of one batched solve.
-    ``solver_time`` covers the solve only, not padding and upload."""
+    """Solve many instances, all LPs or all QPs, as the lanes of one
+    batched solve.  ``device`` defaults to the first CUDA device; without
+    one, ``device="cpu"`` must be given.  ``solver_time`` covers the solve
+    only, not padding and upload."""
     _ensure_fp32_matmul()
     opt = load_options(**options)
     device = torch.device(device) if device is not None else default_device()

@@ -7,7 +7,9 @@ and ``solve_device``.  Where the JAX package traces one XLA program and
 lanes.  Every data-dependent exit is a lane mask; the host reads one flag
 per exit test (``utils/sync.py``) and a lane that has left a loop keeps
 its state bit for bit, so each lane follows the trajectory that
-``vmap(solve_device)`` gives it.  The logged, timed and chunked drivers
+``vmap(solve_device)`` gives it.  LPs and convex QPs run through every
+dense KKT system (NORMAL, CONDENSED, AUGMENTED, SCALED_AUGMENTED), with
+Gondzio corrections on request.  The logged, timed and chunked drivers
 are ROADMAP item A10.
 """
 
@@ -30,7 +32,6 @@ from ..utils.options import (
     FixedRegularization,
     IPMOptions,
     KKTSystem,
-    LinearSolver,
     Mehrotra,
     MehrotraAdaptiveStep,
     NoRegularization,
@@ -54,6 +55,7 @@ class SolverConfig:
     divergence_tol: float
     mu_init: float
     mu_min: float
+    max_ncorr: int
     s_max: float
     scaling: bool
     bound_push: float
@@ -89,19 +91,13 @@ def make_config(opt: IPMOptions, is_qp: bool, dtype: torch.dtype = torch.float64
         raise ValueError(
             "NormalKKT supports only linear programs; use kkt_system=AUGMENTED for QPs."
         )
-    if kind != KKTSystem.NORMAL:
-        raise NotImplementedError(f"kkt_system={kind.name} (and QPs) is ROADMAP item A7")
-    linear_solver = opt.resolved_linear_solver(kind)
-    if linear_solver not in (LinearSolver.CHOLESKY, LinearSolver.CHOLESKY_INV):
-        raise NotImplementedError(f"linear_solver={linear_solver.name} is ROADMAP item A7")
     for name, unported in (
         ("pcg_flex", opt.pcg_flex),
         ("precond_refine", opt.precond_refine),
         ("factor_precision", opt.factor_precision is not None),
-        ("max_ncorr", opt.max_ncorr > 0),
     ):
         if unported:
-            raise NotImplementedError(f"option {name} is ROADMAP item A7")
+            raise NotImplementedError(f"option {name} is ROADMAP item A7b")
     if opt.fp64_matvec in ("ozaki", "ozaki_i8"):
         raise NotImplementedError(
             f"fp64_matvec={opt.fp64_matvec!r} is ROADMAP item A12; fp64 matvecs are native here"
@@ -114,14 +110,20 @@ def make_config(opt: IPMOptions, is_qp: bool, dtype: torch.dtype = torch.float64
     if not isinstance(opt.barrier_update, Mehrotra):
         raise ValueError(f"barrier_update must be a Mehrotra instance, got {opt.barrier_update!r}")
     factor_dtype = _torch_dtype(opt.factor_dtype) if opt.factor_dtype else dtype
-    # The PCG only pays off when the factor runs below the solve precision.
-    refinement = opt.refinement_steps if factor_dtype != dtype else 0
+    # The PCG only pays off when the factor runs below the solve precision,
+    # except for K1, whose gamma-relaxation (cond(C) ~ 1e8) needs the polish
+    # even with an fp64 factor.
+    if factor_dtype != dtype or kind == KKTSystem.CONDENSED:
+        refinement = opt.refinement_steps
+    else:
+        refinement = 0
     kcfg = KKTConfig(
         kind=kind,
-        linear_solver=linear_solver,
+        linear_solver=opt.resolved_linear_solver(kind),
         factor_dtype=factor_dtype,
         refinement_steps=refinement,
         max_factor_trials=3,
+        use_pallas=bool(opt.use_pallas),  # None (auto) = off
     )
     return SolverConfig(
         kkt=kcfg,
@@ -132,6 +134,7 @@ def make_config(opt: IPMOptions, is_qp: bool, dtype: torch.dtype = torch.float64
         divergence_tol=opt.divergence_tol,
         mu_init=opt.mu_init,
         mu_min=opt.mu_min,
+        max_ncorr=opt.max_ncorr,
         s_max=opt.s_max,
         scaling=opt.scaling,
         bound_push=opt.bound_push,
@@ -433,10 +436,15 @@ def _factor_phase(cfg: SolverConfig, prob: TorchQP, state: IPMState, active=None
     return factors, del_w, del_c, reg_p, reg_d
 
 
+def _lane_all_finite(v):
+    return torch.all(torch.isfinite(v), dim=-1, keepdim=True)
+
+
 def _direction_phase(cfg: SolverConfig, prob: TorchQP, state: IPMState, factors, ax, aty,
                      active=None, return_products=False):
-    """Predictor + Mehrotra corrector solves; returns the direction and the
-    new barrier parameter (and (A dx, A' dy) with ``return_products``).
+    """Predictor + Mehrotra corrector (+ Gondzio) solves; returns the
+    accepted direction and the new barrier parameter (and its (A dx, A' dy)
+    with ``return_products``).
     A finished lane (``active`` False) solves with a zero rhs, so its PCG
     exits on the first test."""
     prob = dataclasses.replace(prob, lb=state.lb, ub=state.ub)
@@ -493,13 +501,55 @@ def _direction_phase(cfg: SolverConfig, prob: TorchQP, state: IPMState, factors,
         res = kkt_ops.solve_residual(prob, factors, rhs_c.rx, rhs_c.rp, dx, dy)
         solve_bad = res > cfg.tol_linear_solve
 
+    # Gondzio multiple centrality corrections: a fixed number of extra
+    # solves; a lane stops taking them at its first rejected one.
+    if cfg.max_ncorr > 0:
+        delta = 0.1
+        beta_min, beta_max = 0.1, 10.0
+        tau_g = 0.995
+        alpha_p_g, alpha_d_g = K.fraction_to_boundary(prob, x, zl, zu, dx, dzl, dzu, tau_g)
+        stopped = torch.zeros_like(state.ls_cert)
+        for _ in range(cfg.max_ncorr):
+            t_ap = torch.clamp(alpha_p_g + delta, max=1.0)
+            t_ad = torch.clamp(alpha_d_g + delta, max=1.0)
+            ga = K.affine_complementarity_measure(prob, x, zl, zu, dx, dzl, dzu, t_ap, t_ad)
+            mu_g = (ga / mu_curr) ** 2 * ga
+            corr_l2, corr_u2 = K.gondzio_extra_correction(
+                prob, x, zl, zu, dx, dzl, dzu, corr_l, corr_u,
+                t_ap, t_ad, beta_min, beta_max, mu_g,
+            )
+            rhs_g = K.corrector_rhs(prob, x, y, zl, zu, mu_g, corr_l2, corr_u2, ax, aty)
+            adx2 = atdy2 = None
+            if return_products:
+                dx2, dy2, adx2, atdy2 = solve(
+                    rhs_g.rx, rhs_g.rp, pcg_rtol=rtol_corr, return_products=True
+                )
+            else:
+                dx2, dy2 = solve(rhs_g.rx, rhs_g.rp, pcg_rtol=rtol_corr)
+            dzl2, dzu2 = K.recover_bound_duals(prob, x, zl, zu, rhs_g, dx2)
+            hat_ap, hat_ad = K.fraction_to_boundary(prob, x, zl, zu, dx2, dzl2, dzu2, tau_g)
+            # Reject when the step sizes fail to grow or the extra solve
+            # gave non-finite values (NaN alphas would compare False).
+            finite = (
+                _lane_all_finite(dx2) & _lane_all_finite(dy2)
+                & torch.isfinite(hat_ap) & torch.isfinite(hat_ad)
+            )
+            reject = (hat_ap < 1.005 * alpha_p_g) | (hat_ad < 1.005 * alpha_d_g) | ~finite
+            accept = (~stopped) & (~reject)
+            dx, dy = torch.where(accept, dx2, dx), torch.where(accept, dy2, dy)
+            dzl, dzu = torch.where(accept, dzl2, dzl), torch.where(accept, dzu2, dzu)
+            if return_products:
+                adx = torch.where(accept, adx2, adx)
+                atdy = torch.where(accept, atdy2, atdy)
+            corr_l = torch.where(accept, corr_l2, corr_l)
+            corr_u = torch.where(accept, corr_u2, corr_u)
+            alpha_p_g = torch.where(accept, hat_ap, alpha_p_g)
+            alpha_d_g = torch.where(accept, hat_ad, alpha_d_g)
+            stopped = stopped | reject
+
     if return_products:
         return dx, dy, dzl, dzu, mu_new, mu_curr, solve_bad, adx, atdy
     return dx, dy, dzl, dzu, mu_new, mu_curr, solve_bad
-
-
-def _lane_all_finite(v):
-    return torch.all(torch.isfinite(v), dim=-1, keepdim=True)
 
 
 def _step_phase(cfg: SolverConfig, prob: TorchQP, state: IPMState,

@@ -51,15 +51,17 @@ def slacks(prob: TorchQP, x):
 
 
 def eval_obj(prob: TorchQP, x):
+    v = prob.c0 + _dot(prob.c, x)
     if prob.is_qp:
-        raise NotImplementedError("QP objectives are ROADMAP item A7")
-    return prob.c0 + _dot(prob.c, x)
+        v = v + 0.5 * _dot(x, prob.qmatvec(x))
+    return v
 
 
 def eval_grad(prob: TorchQP, x):
+    g = prob.c
     if prob.is_qp:
-        raise NotImplementedError("QP gradients are ROADMAP item A7")
-    return prob.c
+        g = g + prob.qmatvec(x)
+    return g
 
 
 def eval_cons_residual(prob: TorchQP, x, ax=None):
@@ -191,6 +193,23 @@ def mehrotra_correction(prob: TorchQP, dx, dzl, dzu):
     """corr_l = dx.dzl, corr_u = -dx.dzu."""
     corr_l = torch.where(prob.has_lb, dx * dzl, 0.0)
     corr_u = torch.where(prob.has_ub, -dx * dzu, 0.0)
+    return corr_l, corr_u
+
+
+def gondzio_extra_correction(prob: TorchQP, x, zl, zu, dx, dzl, dzu, corr_l, corr_u,
+                             alpha_p, alpha_d, beta_min, beta_max, mu):
+    """Gondzio centrality correction: clip the trial pairwise products into
+    [beta_min*mu, beta_max*mu]."""
+    sl, su = slacks(prob, x)
+    tmin, tmax = beta_min * mu, beta_max * mu
+
+    def shortfall(v):
+        return torch.where(v < tmin, tmin - v, torch.where(v > tmax, tmax - v, 0.0))
+
+    vl = (sl + alpha_p * dx) * (zl + alpha_d * dzl)
+    corr_l = torch.where(prob.has_lb, corr_l - shortfall(vl), 0.0)
+    vu = (su - alpha_p * dx) * (zu + alpha_d * dzu)
+    corr_u = torch.where(prob.has_ub, corr_u - shortfall(vu), 0.0)
     return corr_l, corr_u
 
 

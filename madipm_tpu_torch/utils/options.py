@@ -3,9 +3,10 @@
 Field-for-field copy of ``madipm_tpu/utils/options.py`` (the JAX package
 cannot be imported without jax).  The history and measurements behind
 each default live there; what differs in this package is noted on the
-field.  Options whose code path is not ported yet are accepted here and
-rejected with ``NotImplementedError`` by ``solver.driver.make_config``,
-naming the ROADMAP item that ports them.
+field.  Options whose code path is not ported yet (``pcg_flex``,
+``precond_refine``, ``factor_precision``, the Ozaki matvecs) are accepted
+here and rejected with ``NotImplementedError`` by
+``solver.driver.make_config``, naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -78,9 +79,11 @@ class Mehrotra:
 
 
 class KKTSystem(enum.Enum):
-    """Linear-system formulation factorized each iteration.  This package
-    runs NORMAL (the SPD normal equations A Sigma^-1 A' - del_c I, LP only);
-    the others are ROADMAP item A7."""
+    """Linear-system formulation factorized each iteration: NORMAL (the SPD
+    normal equations A Sigma^-1 A' - del_c I, LP only), CONDENSED (K1, the
+    SPD Sigma + Q + gamma A'A), AUGMENTED (K2, the quasi-definite
+    [Sigma+Q, A'; A, del_c I]) and SCALED_AUGMENTED (K2.5, K2 after a
+    symmetric diagonal scaling)."""
 
     NORMAL = "normal"
     AUGMENTED = "augmented"
@@ -89,9 +92,11 @@ class KKTSystem(enum.Enum):
 
 
 class LinearSolver(enum.Enum):
-    """Factorization of the KKT matrix.  CHOLESKY (torch.linalg) and
+    """Factorization of the KKT matrix.  For the SPD systems: CHOLESKY
+    (torch.linalg, or the factor-only CUDA kernel with ``use_pallas``) and
     CHOLESKY_INV (the explicit inverse factor from ops/chol_inv.py, a CUDA
-    kernel on the GPU) run here; LDL, LDL_INV and LU are ROADMAP item A7."""
+    kernel on the GPU).  For the augmented systems: LDL (unpivoted blocked
+    LDL'), LDL_INV (its explicit inverse factor) and LU (torch.linalg)."""
 
     CHOLESKY = "cholesky"
     CHOLESKY_INV = "cholesky_inv"
@@ -148,7 +153,7 @@ class IPMOptions:
 
     # Barrier
     barrier_update: object = dataclasses.field(default_factory=Mehrotra)
-    max_ncorr: int = 0  # Gondzio corrections (ROADMAP A7)
+    max_ncorr: int = 0  # Gondzio centrality corrections per iteration
     s_max: float = 100.0
     mu_init: float = 1e-1
     mu_min: float = 1e-12
@@ -176,15 +181,17 @@ class IPMOptions:
 
     #: dtype of the factorization, e.g. "float32"; None = the solve dtype
     factor_dtype: Optional[str] = None
-    #: second-order preconditioner (ROADMAP A7)
+    #: second-order preconditioner (ROADMAP A7b)
     precond_refine: bool = False
-    #: matmul precision of the factor work (ROADMAP A7; float32 matmuls run
+    #: matmul precision of the factor work (ROADMAP A7b; float32 matmuls run
     #: in full float32 here, TF32 is switched off by the package)
     factor_precision: Optional[str] = None
-    #: accepted and without effect: on CUDA every CHOLESKY_INV factor runs
-    #: through the kernel in ops/chol_inv.py
+    #: True: a CHOLESKY factor of the NORMAL or CONDENSED system runs
+    #: through the factor-only kernel of ops/chol_inv.py, not torch.linalg
+    #: (None = False).  A CHOLESKY_INV factor runs through its kernel on
+    #: CUDA whatever this says.
     use_pallas: Optional[bool] = None
-    #: flexible PCG with an inner low-precision CG (ROADMAP A7)
+    #: flexible PCG with an inner low-precision CG (ROADMAP A7b)
     pcg_flex: bool = False
     #: fp64 matvecs: "auto" and "emulated" mean native fp64 here;
     #: "ozaki" and "ozaki_i8" are ROADMAP item A12

@@ -201,11 +201,11 @@ def test_generators_match():
     (dict(fp64_matvec="ozaki"), NotImplementedError, "A12"),
     (dict(fp64_matvec="ozaki_i8"), NotImplementedError, "A12"),
     (dict(fp64_matvec="nope"), ValueError, "fp64_matvec"),
-    (dict(kkt_system=topt.KKTSystem.AUGMENTED), NotImplementedError, "A7"),
-    (dict(linear_solver=topt.LinearSolver.LDL), NotImplementedError, "A7"),
-    (dict(pcg_flex=True), NotImplementedError, "A7"),
-    (dict(precond_refine=True), NotImplementedError, "A7"),
-    (dict(max_ncorr=2), NotImplementedError, "A7"),
+    (dict(factor_precision="high"), NotImplementedError, "A7b"),
+    (dict(barrier_update="monotone"), ValueError, "barrier_update"),
+    (dict(pcg_flex=True), NotImplementedError, "A7b"),
+    (dict(precond_refine=True), NotImplementedError, "A7b"),
+    (dict(factor_dtype="float16"), ValueError, "factor_dtype"),
     (dict(factor_dtype="bfloat16"), ValueError, "factor_dtype"),
 ])
 def test_make_config_rejects_unported(kw, exc, match):
@@ -213,19 +213,39 @@ def test_make_config_rejects_unported(kw, exc, match):
         driver.make_config(topt.IPMOptions(**kw), is_qp=False)
 
 
-def test_make_config_resolves_like_jax():
-    for kw in ({}, dict(factor_dtype="float32", linear_solver=topt.LinearSolver.CHOLESKY_INV),
-               dict(use_pallas=True, fp64_matvec="emulated")):
-        cfg = driver.make_config(topt.IPMOptions(**kw), is_qp=False)
-        jkw = dict(kw)
-        if "linear_solver" in jkw:
-            jkw["linear_solver"] = jopt.LinearSolver.CHOLESKY_INV
-        from madipm_tpu.solver import driver as jdriver
+def test_make_config_rejects_normal_for_qp():
+    with pytest.raises(ValueError, match="NormalKKT"):
+        driver.make_config(topt.IPMOptions(kkt_system=topt.KKTSystem.NORMAL), is_qp=True)
 
-        jcfg = jdriver.make_config(jopt.IPMOptions(**jkw), is_qp=False)
-        assert cfg.kkt.refinement_steps == jcfg.kkt.refinement_steps
-        assert cfg.kkt.linear_solver.value == jcfg.kkt.linear_solver.value
-        assert str(cfg.kkt.factor_dtype)[6:] == str(jcfg.kkt.factor_dtype)
+
+@pytest.mark.parametrize("is_qp, kw", [
+    (False, {}),
+    (False, dict(factor_dtype="float32", linear_solver="CHOLESKY_INV")),
+    (False, dict(use_pallas=True, fp64_matvec="emulated")),
+    (True, {}),  # AUGMENTED + LDL, no refinement in fp64
+    (True, dict(kkt_system="CONDENSED")),  # K1 refines even with an fp64 factor
+    (True, dict(kkt_system="CONDENSED", linear_solver="CHOLESKY_INV", use_pallas=True)),
+    (True, dict(kkt_system="SCALED_AUGMENTED", linear_solver="LU", factor_dtype="float32")),
+    (False, dict(kkt_system="AUGMENTED", max_ncorr=3)),
+])
+def test_make_config_resolves_like_jax(is_qp, kw):
+    from madipm_tpu.solver import driver as jdriver
+
+    def resolve(opt_mod):
+        out = dict(kw)
+        for key, enum in (("kkt_system", "KKTSystem"), ("linear_solver", "LinearSolver")):
+            if key in out:
+                out[key] = getattr(opt_mod, enum)[out[key]]
+        return opt_mod.IPMOptions(**out)
+
+    cfg = driver.make_config(resolve(topt), is_qp=is_qp)
+    jcfg = jdriver.make_config(resolve(jopt), is_qp=is_qp)
+    assert cfg.kkt.kind.value == jcfg.kkt.kind.value
+    assert cfg.kkt.refinement_steps == jcfg.kkt.refinement_steps
+    assert cfg.kkt.linear_solver.value == jcfg.kkt.linear_solver.value
+    assert str(cfg.kkt.factor_dtype)[6:] == str(jcfg.kkt.factor_dtype)
+    assert cfg.kkt.use_pallas == jcfg.kkt.use_pallas
+    assert cfg.max_ncorr == jcfg.max_ncorr
 
 
 def test_chol_inv_wrapper_dispatch():

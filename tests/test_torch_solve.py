@@ -80,5 +80,17 @@ def test_unported_drivers_raise():
         solver.solve(logged=True)
     with pytest.raises(NotImplementedError, match="A10"):
         mtt.madipm(mtt.from_dense(**d), device="cpu", max_wall_time=10.0)
-    with pytest.raises(NotImplementedError, match="A7"):
-        mtt.madipm(mtt.from_dense(**d, Q=np.eye(96)), device="cpu")
+    with pytest.raises(NotImplementedError, match="A7b"):
+        mtt.madipm(mtt.from_dense(**d), device="cpu", pcg_flex=True)
+
+
+def test_no_device_and_no_gpu_raises(monkeypatch):
+    """Without ``device`` the entry points take the first CUDA device and
+    raise where there is none; they never carry on on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    qp = mtt.from_dense(**INSTANCES["lp0"])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        mtt.madipm(qp, print_level=mtt.PrintLevel.ERROR)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        mtt.madipm_batch([qp], print_level=mtt.PrintLevel.ERROR)
+    assert mtt.madipm(qp, device="cpu", print_level=mtt.PrintLevel.ERROR).success
