@@ -8,11 +8,16 @@ Runs, in order, and fails (non-zero exit) at the first phase that fails:
 1. the device: a CUDA device must be present (no CPU fallback); prints its
    name and ``nvidia-smi``'s name and power limit;
 2. the build: compiles the kernel library from ``madipm_tpu_torch/csrc``;
-3. the kernels against their plain torch versions on the card, at the main
-   paths' shape (B=8, N=1024) and at (3, 256), in fp32 and fp64:
-   ``chol_inv`` (L, L^-1) and ``cholesky`` (L alone), each with its time,
-   its plain version's, one torch.linalg call's and its bound; an
-   indefinite matrix must come back non-finite;
+3. the kernels against their plain torch versions on the card, in fp32 and
+   fp64: ``chol_inv`` (L, L^-1) and ``cholesky`` (L alone) at the main
+   paths' shape (B=8, N=1024) and at (3, 256), each with its time, its
+   plain version's, one torch.linalg call's and its bound; then at one
+   tile (1, 32), odd tile counts (2, 96), (1, 128), (16, 1024), (2, 4096)
+   and more instances than one wave holds (600, 128); the L of the two
+   bit-identical at every shape; an indefinite matrix non-finite, alone and
+   as one lane of a batch whose other lanes do not change by a bit; 50
+   calls with no sync between them, all bit-identical; and the operations
+   one call enqueues, which must not depend on N;
 4. the LP main path: ``madipm_batch`` on the bench suite (8 LPs, m=1024,
    n=2048, density 0.15) with the accelerator options; one warm run, then
    a timed run on the rhs scaled by 1+1e-4, which must solve 8/8 through
@@ -59,8 +64,10 @@ from madipm_tpu_torch.utils import sync
 KERNEL_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 
 #: the card's peaks for the kernels' bounds: NVIDIA's H100 SXM data sheet,
-#: FLOP/s outside the tensor cores by dtype, and bytes/s of device memory
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+#: FLOP/s of what each dtype's products run on (fp32: outside the tensor
+#: cores; fp64: the tensor cores, which the kernel's mma.sync uses), and
+#: bytes/s of device memory
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 PEAK_BYTES = 3.35e12
 
 #: bench.py's accelerator options, without ozaki_slices (matvecs are native fp64)
@@ -154,33 +161,135 @@ def library_chol_inv(S):
     return L, torch.linalg.solve_triangular(L, eye, upper=False)
 
 
-def check_kernel(name, S, kernel, plain, library, flops, nbytes) -> dict:
-    """Hold one kernel against its plain version on ``S`` and time it, its
-    plain version and the library call in turns.  ``kernel`` and ``plain``
-    return a tuple of tensors, L first."""
+def agreement(name, S, outs, refs) -> float:
+    """Hold a kernel's outputs (L first, then L^-1 where there is one)
+    against the plain version's on ``S``: each relative to max |.| within
+    KERNEL_TOL, |L L' - S| within ten times that, |L^-1 L - I| within
+    KERNEL_TOL, upper triangles exactly zero.  Returns the largest absolute
+    difference."""
     batch, n, dtype = S.shape[0], S.shape[-1], S.dtype
-    outs, refs = kernel(S), plain(S)
-    torch.cuda.synchronize()
+    tol = KERNEL_TOL[dtype]
     errs = [float((o - r).abs().max() / r.abs().max()) for o, r in zip(outs, refs)]
     L = outs[0]
     err_S = float((L @ L.mT - S).abs().max() / S.abs().max())
-    err_up = float(torch.triu(L, 1).abs().max())
-    tol = KERNEL_TOL[dtype]
+    err_up = max(float(torch.triu(o, 1).abs().max()) for o in outs)
+    err_I = 0.0
+    if len(outs) > 1:
+        eye = torch.eye(n, device=S.device, dtype=dtype)
+        err_I = float((outs[1] @ L - eye).abs().max())
+    log(f"kernel {name} B={batch} N={n} {str(dtype)[6:]}: rel err vs plain "
+        f"{[f'{e:.3e}' for e in errs]}, |L L' - S| {err_S:.3e}, |Linv L - I| {err_I:.3e} (tol {tol:g})")
+    check(all(e <= tol for e in errs) and err_S <= 10 * tol and err_I <= tol and err_up == 0.0,
+          f"kernel {name} disagrees with the plain version at B={batch} N={n} {dtype}")
+    return float(max((o - r).abs().max() for o, r in zip(outs, refs)))
+
+
+def check_kernel(name, S, kernel, plain, library, flops, nbytes, plain_reps=3) -> dict:
+    """Hold one kernel against its plain version on ``S`` and time it, the
+    library call and (``plain_reps`` > 0) its plain version in turns.
+    ``kernel`` and ``plain`` return a tuple of tensors, L first."""
+    batch, n, dtype = S.shape[0], S.shape[-1], S.dtype
+    outs, refs = kernel(S), plain(S)
+    torch.cuda.synchronize()
+    max_abs_err = agreement(name, S, outs, refs)
+    del outs, refs
     ms = cuda_ms(lambda: kernel(S), reps=10)
-    plain_ms = cuda_ms(lambda: plain(S), reps=3)
+    plain_ms = cuda_ms(lambda: plain(S), reps=plain_reps) if plain_reps else None
     library_ms = cuda_ms(lambda: library(S), reps=10)
     b_ms, b_by = bound_ms(flops, nbytes, dtype)
-    log(f"kernel {name} B={batch} N={n} {str(dtype)[6:]}: rel err vs plain "
-        f"{[f'{e:.3e}' for e in errs]}, |L L' - S| {err_S:.3e} (tol {tol:g}); "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms by {b_by}")
-    check(all(e <= tol for e in errs) and err_S <= 10 * tol and err_up == 0.0,
-          f"kernel {name} disagrees with the plain version at B={batch} N={n} {dtype}")
+    log(f"kernel {name} B={batch} N={n} {str(dtype)[6:]}: kernel {ms:.4f} ms, "
+        f"plain {'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}, "
+        f"library {library_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}")
     return dict(
-        shape=[batch, n, n], dtype=str(dtype)[6:],
-        max_abs_err=float(max((o - r).abs().max() for o, r in zip(outs, refs))),
+        shape=[batch, n, n], dtype=str(dtype)[6:], max_abs_err=max_abs_err,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
     )
+
+
+def kernel_cholesky(S):
+    return (chol_inv.cholesky(S),)
+
+
+def plain_cholesky(S):
+    return (block_chol.cholesky(S),)
+
+
+def check_shape(batch, n, dtype, gen, plain_reps=3):
+    """Both kernels at one shape; returns their two rows."""
+    S = random_spd(batch, n, dtype, gen)
+    size = S.element_size()
+    n3 = batch * float(n) ** 3
+    words = batch * n * n
+    row_inv = check_kernel(
+        "chol_inv", S, chol_inv.chol_inv, block_chol.chol_inv, library_chol_inv,
+        flops=2 * n3 / 3, nbytes=3 * words * size,  # factor + inverse; S in, L and Linv out
+        plain_reps=plain_reps,
+    )
+    row_chol = check_kernel(
+        "cholesky", S, kernel_cholesky, plain_cholesky, torch.linalg.cholesky_ex,
+        flops=n3 / 3, nbytes=2 * words * size,  # factor alone; S in, L out
+        plain_reps=plain_reps,
+    )
+    check(torch.equal(chol_inv.cholesky(S), chol_inv.chol_inv(S)[0]),
+          f"the L of cholesky and of chol_inv differ in a bit at B={batch} N={n} {dtype}")
+    return row_inv, row_chol
+
+
+def check_mixed_batch(dtype, gen):
+    """One indefinite lane among good ones: the good lanes come out as they
+    do from a batch without it, bit for bit, and agree with the plain
+    version; the bad lane is non-finite."""
+    S = random_spd(6, 256, dtype, gen)
+    good_L, good_W = chol_inv.chol_inv(S)
+    good_C = chol_inv.cholesky(S)
+    bad = 2
+    S_mixed = S.clone()
+    S_mixed[bad] = -torch.eye(256, device="cuda", dtype=dtype)
+    L, W = chol_inv.chol_inv(S_mixed)
+    C = chol_inv.cholesky(S_mixed)
+    keep = [i for i in range(S.shape[0]) if i != bad]
+    check(torch.equal(L[keep], good_L[keep]) and torch.equal(W[keep], good_W[keep])
+          and torch.equal(C[keep], good_C[keep]),
+          f"an indefinite lane changed its neighbours ({dtype})")
+    agreement("chol_inv (mixed batch, good lanes)", S[keep], (L[keep], W[keep]),
+              block_chol.chol_inv(S[keep]))
+    check(not bool(torch.isfinite(L[bad]).all()) and not bool(torch.isfinite(C[bad]).all()),
+          f"an indefinite lane came back finite ({dtype})")
+    check(bool(linalg.cholesky_is_ok(L).tolist() == [i != bad for i in range(S.shape[0])]),
+          f"cholesky_is_ok does not single out the indefinite lane ({dtype})")
+
+
+def check_back_to_back(dtype, gen, calls=50):
+    """``calls`` calls enqueued with no sync between them (the counters'
+    scratch is handed out again by the allocator): all equal to the first."""
+    S = random_spd(8, 512, dtype, gen)
+    first = chol_inv.chol_inv(S)
+    torch.cuda.synchronize()
+    outs = [chol_inv.chol_inv(S) for _ in range(calls)]
+    facs = [chol_inv.cholesky(S) for _ in range(calls)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(L, first[0]) and torch.equal(W, first[1]) for L, W in outs)
+          and all(torch.equal(L, first[0]) for L in facs),
+          f"{calls} back-to-back calls did not all give the first call's bits ({dtype})")
+
+
+def enqueued_operations(fn, S) -> int:
+    """Device operations (kernels, memsets, copies) one call of ``fn`` puts
+    on the stream, counted by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(S)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(S)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+#: further shapes the kernels are held at: one tile, odd tile counts, two
+#: block rows to a CTA, the largest size of the repo, more instances than a wave
+EXTRA_SHAPES = ((1, 32), (2, 96), (1, 128), (16, 1024), (2, 4096), (600, 128))
 
 
 def phase_kernel() -> dict:
@@ -192,32 +301,31 @@ def phase_kernel() -> dict:
     rows = {}
     for batch, n in ((8, 1024), (3, 256)):
         for dtype in (torch.float32, torch.float64):
-            S = random_spd(batch, n, dtype, gen)
-            size = S.element_size()
-            n3 = batch * float(n) ** 3
-            words = batch * n * n
-            row_inv = check_kernel(
-                "chol_inv", S, chol_inv.chol_inv, block_chol.chol_inv, library_chol_inv,
-                flops=2 * n3 / 3, nbytes=3 * words * size,  # factor + inverse; S in, L and Linv out
-            )
-            eye = torch.eye(n, device="cuda", dtype=dtype)
-            L, W = chol_inv.chol_inv(S)
-            err_I = float((W @ L - eye).abs().max())
-            check(err_I <= KERNEL_TOL[dtype], f"chol_inv: |Linv L - I| = {err_I:.3e}")
-            row_chol = check_kernel(
-                "cholesky", S, lambda A: (chol_inv.cholesky(A),),
-                lambda A: (block_chol.cholesky(A),), lambda A: torch.linalg.cholesky_ex(A),
-                flops=n3 / 3, nbytes=2 * words * size,  # factor alone; S in, L out
-            )
+            row_inv, row_chol = check_shape(batch, n, dtype, gen)
             if (batch, n) == (8, 1024):  # the main paths' shape
                 rows["chol_inv", dtype] = row_inv
                 rows["cholesky", dtype] = row_chol
+    for batch, n in EXTRA_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            check_shape(batch, n, dtype, gen, plain_reps=0)
     for dtype in (torch.float32, torch.float64):
         bad = -torch.eye(256, device="cuda", dtype=dtype)
         L, W = chol_inv.chol_inv(bad)
         check(not bool(torch.isfinite(L).all()), f"chol_inv: indefinite S gave a finite factor ({dtype})")
         L = chol_inv.cholesky(bad)
         check(not bool(torch.isfinite(L).all()), f"cholesky: indefinite S gave a finite factor ({dtype})")
+        check_mixed_batch(dtype, gen)
+        check_back_to_back(dtype, gen)
+    log("kernels: mixed batch (one indefinite lane), 50 back-to-back calls and the "
+        "bit-identity of the two L pass in fp32 and fp64")
+    counts = {}
+    for n in (256, 1024):
+        S = random_spd(8, n, torch.float64, gen)
+        counts[n] = (enqueued_operations(chol_inv.chol_inv, S), enqueued_operations(chol_inv.cholesky, S))
+    log(f"enqueued operations per call at N=1024: chol_inv {counts[1024][0]}, cholesky {counts[1024][1]} "
+        f"(at N=256: {counts[256][0]}, {counts[256][1]})")
+    check(counts[1024] == counts[256] == (chol_inv.ENQUEUED_OPS,) * 2,
+          "the operations a call enqueues depend on N or are not the two the wrapper states")
     check(chol_inv.launches > before[0] and chol_inv.cholesky_launches > before[1],
           "a launch counter did not rise")
     return rows
@@ -386,8 +494,8 @@ def main() -> int:
              replaces="madipm_tpu/ops/pallas_chol.py:225", launches=qp_chol_launches,
              **rows["cholesky", torch.float64]),
     ]
-    print(json.dumps({"kernels": kernels}), flush=True)
     log(smi)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)
