@@ -10,8 +10,9 @@ Runs, in order, and fails (non-zero exit) at the first phase that fails:
 2. the build: compiles the kernel library from ``madipm_tpu_torch/csrc``;
 3. the kernels against their plain torch versions on the card, in fp32 and
    fp64: ``chol_inv`` (L, L^-1) and ``cholesky`` (L alone) at the main
-   paths' shape (B=8, N=1024) and at (3, 256), each with its time, its
-   plain version's, one torch.linalg call's and its bound; then at one
+   paths' shapes (B=8, N=1024; B=4, N=2048 for the sparse LP path) and at
+   (3, 256), each with its time, its plain version's, one torch.linalg
+   call's and its bound; then at one
    tile (1, 32), odd tile counts (2, 96), (1, 128), (16, 1024), (2, 4096)
    and more instances than one wave holds (600, 128); the L of the two
    bit-identical at every shape; an indefinite matrix non-finite, alone and
@@ -31,7 +32,15 @@ Runs, in order, and fails (non-zero exit) at the first phase that fails:
    objectives of the two equal to 1e-7;
 7. the QP certificate: known-optimum convex QPs, K1 at 512 x 1024 and K2
    (AUGMENTED, LDL) at 256 x 512, each to rel-KKT <= 1e-8 with the Q term
-   in the dual residual; one K2 instance also with two Gondzio corrections.
+   in the dual residual; one K2 instance also with two Gondzio corrections;
+8. the sparse (ELL) routes: the tall sparse LP suite (4 LPs, m=2048,
+   n=32768, density 0.004) through ``madipm_batch(..., sparse=True)`` with
+   the accelerator options, 4/4 through the fp32 ``chol_inv`` kernel at
+   (4, 2048) to rel-KKT <= 1e-8; instance 0 alone with no ``sparse``
+   argument, which must take the ELL route; two assemblies of one tall
+   lane, bit-identical and equal to the dense product; the LP bench suite
+   of phase 4 and the four K1 certificate QPs of phase 7 on the ELL route,
+   against the dense results; ``from_mps`` on the two sample files.
 
 Each main path is driven with the launch counters set to 0 just before it
 and read just after.  The last two lines are the kernel table and
@@ -43,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -58,7 +68,14 @@ from madipm_tpu_torch.models.generators import (
     make_suite,
 )
 from madipm_tpu_torch.ops import block_chol, chol_inv, linalg
+from madipm_tpu_torch.parallel.batch import bucket_pad_sparse
 from madipm_tpu_torch.utils import sync
+
+#: the sample files and the objectives the CPU tests hold for them
+MPS_FILES = {
+    os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", name): obj
+    for name, obj in (("simple.mps", 13.0), ("simple_qp.qps", -6.25))
+}
 
 #: (L, Linv) agreement of kernel and plain version, relative to max |.|
 KERNEL_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
@@ -293,18 +310,18 @@ EXTRA_SHAPES = ((1, 32), (2, 96), (1, 128), (16, 1024), (2, 4096), (600, 128))
 
 
 def phase_kernel() -> dict:
-    """Rows of the kernel table at the main paths' shape, keyed by
-    (kernel, dtype)."""
+    """Rows of the kernel table at the main paths' shapes, keyed by
+    (kernel, dtype, N)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     before = (chol_inv.launches, chol_inv.cholesky_launches)
     rows = {}
-    for batch, n in ((8, 1024), (3, 256)):
+    for batch, n in ((8, 1024), (4, 2048), (3, 256)):
         for dtype in (torch.float32, torch.float64):
-            row_inv, row_chol = check_shape(batch, n, dtype, gen)
-            if (batch, n) == (8, 1024):  # the main paths' shape
-                rows["chol_inv", dtype] = row_inv
-                rows["cholesky", dtype] = row_chol
+            row_inv, row_chol = check_shape(batch, n, dtype, gen, plain_reps=1 if n == 2048 else 3)
+            if n != 256:  # the main paths' shapes: dense (8, 1024), sparse LP (4, 2048)
+                rows["chol_inv", dtype, n] = row_inv
+                rows["cholesky", dtype, n] = row_chol
     for batch, n in EXTRA_SHAPES:
         for dtype in (torch.float32, torch.float64):
             check_shape(batch, n, dtype, gen, plain_reps=0)
@@ -347,12 +364,12 @@ def rel_kkt(qp, st) -> float:
     return max(float(r_p), float(r_d), float(compl))
 
 
-def timed_batch(label, models, device, options) -> dict:
+def timed_batch(label, models, device, options, sparse=False) -> dict:
     """One warm ``madipm_batch`` run, then a timed run on the rhs scaled by
     1+1e-4 with every counter set to 0 just before it and read just after.
     The timed run must solve every instance to finite solutions."""
     k, n = len(models), models[0].nvar
-    warm = mtt.madipm_batch(models, device=device, **options)
+    warm = mtt.madipm_batch(models, device=device, sparse=sparse, **options)
     log(f"{label} warm run: {sum(s.success for s in warm)}/{k} solved, "
         f"iters {[s.iter for s in warm]}, {warm[0].solver_time:.3f} s")
     scaled = [dataclasses.replace(q, lcon=q.lcon * (1 + 1e-4), ucon=q.ucon * (1 + 1e-4))
@@ -360,7 +377,9 @@ def timed_batch(label, models, device, options) -> dict:
     chol_inv.launches = 0
     chol_inv.cholesky_launches = 0
     sync.count = 0
-    stats = mtt.madipm_batch(scaled, device=device, **options)
+    t0 = time.time()
+    stats = mtt.madipm_batch(scaled, device=device, sparse=sparse, **options)
+    whole = time.time() - t0
     inv_launches, chol_launches, syncs = chol_inv.launches, chol_inv.cholesky_launches, sync.count
     iters = [s.iter for s in stats]
     wall = stats[0].solver_time
@@ -368,7 +387,8 @@ def timed_batch(label, models, device, options) -> dict:
     log(f"{label} timed run: {sum(s.success for s in stats)}/{k} solved, "
         f"statuses {[s.status.name for s in stats]}")
     log(f"{label}: per-instance iterations {iters}, wall {wall:.4f} s, "
-        f"{sum(iters) / wall:.2f} iter/s, rel-KKT max {max(kkt):.3e}")
+        f"{sum(iters) / wall:.2f} iter/s, rel-KKT max {max(kkt):.3e}; "
+        f"packing and upload (outside the wall) {whole - wall:.2f} s")
     log(f"{label}: chol_inv launches {inv_launches}, cholesky launches {chol_launches}, "
         f"host syncs {syncs} ({syncs / max(iters):.2f} per batch iteration, "
         f"{(inv_launches + chol_launches) / max(iters):.2f} kernel launches per batch iteration, "
@@ -376,15 +396,15 @@ def timed_batch(label, models, device, options) -> dict:
     check(all(s.success for s in stats), f"{label}: the suite did not solve {k}/{k}")
     check(all(np.all(np.isfinite(s.solution)) and s.solution.shape == (n,) for s in stats),
           f"{label}: non-finite or misshapen solutions")
-    return dict(stats=stats, chol_inv=inv_launches, cholesky=chol_launches)
+    return dict(stats=stats, models=scaled, chol_inv=inv_launches, cholesky=chol_launches)
 
 
-def phase_main_path(device, k=8, m=1024, n=2048, density=0.15) -> int:
-    """The LP main path; returns its chol_inv launches (fp32)."""
+def phase_main_path(device, k=8, m=1024, n=2048, density=0.15) -> dict:
+    """The LP main path; returns its timed run (``timed_batch``)."""
     run = timed_batch("LP main path", make_suite(k=k, n=n, m=m, density=density),
                       device, BENCH_OPTIONS)
     check(run["chol_inv"] > 0, "the LP main path never launched the chol_inv kernel")
-    return run["chol_inv"]
+    return run
 
 
 def phase_qp_main_path(device, k=8, m=512, n=1024, density=0.15):
@@ -414,7 +434,7 @@ def certify(qp, info, device, label, **options):
     log(f"certificate {label}: {st.status.name}, iter {st.iter}, "
         f"rel-KKT {kkt:.3e}, rel obj err {obj_err:.3e}, {st.total_time:.3f} s")
     check(st.success and kkt <= 1e-8, f"known optimum {label} failed")
-    return kkt
+    return kkt, obj_err
 
 
 def phase_certificate(device, m=1024, n=2048):
@@ -423,7 +443,7 @@ def phase_certificate(device, m=1024, n=2048):
         for seed in (1, 2):
             qp, info = known_optimum_lp(m, n, seed=seed + m, degenerate=deg)
             worst = max(worst, certify(qp, info, device, f"{qp.name} seed {seed + m}",
-                                       **CERT_OPTIONS))
+                                       **CERT_OPTIONS)[0])
     log(f"certificate: 4/4 LPs at rel-KKT <= 1e-8 (worst {worst:.3e})")
 
 
@@ -438,11 +458,11 @@ def phase_qp_certificate(device):
             for seed in (1, 2):
                 qp, info = known_optimum_qp(m, n, seed=seed + m, degenerate=deg, sparse_q=True)
                 worst = max(worst, certify(qp, info, device, f"{qp.name} seed {seed + m} {tag}",
-                                           kkt_system=kind, **QP_CERT_OPTIONS))
+                                           kkt_system=kind, **QP_CERT_OPTIONS)[0])
                 count += 1
     qp, info = known_optimum_qp(256, 512, seed=257, sparse_q=True)
     worst = max(worst, certify(qp, info, device, f"{qp.name} seed 257 k2 max_ncorr=2",
-                               kkt_system=mtt.KKTSystem.AUGMENTED, max_ncorr=2, **QP_CERT_OPTIONS))
+                               kkt_system=mtt.KKTSystem.AUGMENTED, max_ncorr=2, **QP_CERT_OPTIONS)[0])
     log(f"certificate: {count + 1}/{count + 1} QPs at rel-KKT <= 1e-8 (worst {worst:.3e})")
     # the plain LDL' recursion at the K2 size above (n + m = 768): a chain of
     # small launches, 128 elimination steps for each of its 6 diagonal blocks
@@ -455,6 +475,141 @@ def phase_qp_certificate(device):
     lu_ms = cuda_ms(lambda: torch.linalg.lu_factor_ex(K), reps=10)
     log(f"ldl_factor (plain torch, 1 x 768 x 768 fp64): {ldl_ms:.3f} ms; "
         f"torch.linalg.lu_factor_ex on the same matrix {lu_ms:.3f} ms")
+
+
+def rel_kkt_pd(qp, st) -> float:
+    """Primal and dual relative residuals on the original model, as
+    scripts/round3_measure.py computes them for the sparse suite."""
+    x, y, zl, zu = st.solution, st.multipliers, st.multipliers_L, st.multipliers_U
+    r_p = np.max(np.abs(qp.A @ x - qp.lcon)) / max(1.0, np.max(np.abs(qp.lcon)))
+    r_d = np.max(np.abs(qp.c + qp.A.T @ y - zl + zu)) / max(1.0, np.max(np.abs(qp.c)))
+    return max(float(r_p), float(r_d))
+
+
+def index_megabytes(prob) -> float:
+    """Device memory of one lane's pattern (pair and destination indices)."""
+    names = ("pair_a", "pair_b", "pair_col", "seg_id", "s_low", "s_up", "seg_len")
+    return sum(getattr(prob, f).numel() * getattr(prob, f).element_size() for f in names) / prob.batch / 2**20
+
+
+def phase_sparse_tall(device, k=4, m=2048, n=32768, density=0.004):
+    """The sparse LP path at the JAX package's tall shape: the suite through
+    ``madipm_batch(sparse=True)`` (its NORMAL factor is fp32 ``chol_inv``
+    at (4, 2048)); returns the timed run's chol_inv launches and the models."""
+    t0 = time.time()
+    models = make_suite(k=k, n=n, m=m, density=density)
+    log(f"sparse LP tall suite: {k} x m={m}, n={n}, density {density}, "
+        f"{models[0].A.nnz} nonzeros in instance 0; make_suite {time.time() - t0:.2f} s (host)")
+    t0 = time.time()
+    probs, _ = bucket_pad_sparse(models, device=device)
+    torch.cuda.synchronize()
+    log(f"sparse LP tall suite: bucket_pad_sparse {time.time() - t0:.2f} s (host pattern build, "
+        f"int64 upload); per lane {probs.pair_a.shape[-1]} pairs, {probs.s_low.shape[-1]} entries of S, "
+        f"ELL widths {probs.A_val.shape[-1]} / {probs.AT_val.shape[-1]}, "
+        f"pattern indices {index_megabytes(probs):.1f} MiB per lane")
+    check(probs.m == m and isinstance(probs, mtt.SparseTorchQP), "the tall bucket is not an m=2048 SparseTorchQP")
+    del probs
+    run = timed_batch("sparse LP tall suite (NORMAL, ELL)", models, device, BENCH_OPTIONS, sparse=True)
+    kkt = [rel_kkt_pd(q, s) for q, s in zip(run["models"], run["stats"])]
+    log(f"sparse LP tall suite: worst rel-KKT (primal, dual; scripts/round3_measure.py) {max(kkt):.3e}")
+    check(max(kkt) <= 1e-8, "the tall sparse suite missed rel-KKT 1e-8")
+    check(run["chol_inv"] > 0, "the sparse LP path never launched the chol_inv kernel")
+    return run["chol_inv"], models
+
+
+def phase_sparse_auto_and_determinism(model, device):
+    """Instance 0 of the tall suite with no ``sparse`` argument: the
+    automatic rule must take the ELL route.  Then two assemblies of its
+    normal matrix, bit for bit, and against the dense product on the card."""
+    solver = mtt.MPCSolver(model, device=device, rethrow_error=True, **BENCH_OPTIONS)
+    check(isinstance(solver.prob, mtt.SparseTorchQP), "the automatic rule took the dense route")
+    st = solver.solve()
+    kkt = rel_kkt_pd(model, st)
+    log(f"auto route: {type(solver.prob).__name__}, {st.status.name}, iter {st.iter}, "
+        f"rel-KKT {kkt:.3e}, {st.solver_time:.3f} s")
+    check(st.success and kkt <= 1e-8, "the auto-routed tall LP did not solve")
+    prob = solver.prob
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    dinv = torch.rand(1, prob.n, generator=gen, device=device, dtype=torch.float64) + 0.5
+    for dtype in (torch.float32, torch.float64):
+        S1 = prob.assemble_normal_matrix(dinv, dtype)
+        S2 = prob.assemble_normal_matrix(dinv, dtype)
+        check(torch.equal(S1, S2), f"two sparse assemblies differ in a bit ({dtype})")
+    A = torch.as_tensor(model.A.toarray(), device=device)
+    dense = (A * dinv[:, : model.nvar]) @ A.T
+    err = float((S1[0, : model.ncon, : model.ncon] - dense).abs().max() / dense.abs().max())
+    ms = cuda_ms(lambda: prob.assemble_normal_matrix(dinv, torch.float32), reps=10)
+    log(f"sparse assembly: bit-identical twice in fp32 and fp64; against the dense A D A' {err:.3e} "
+        f"relative (fp64); one fp32 assembly of a {prob.m} x {prob.m} S from "
+        f"{prob.pair_a.shape[-1]} pairs {ms:.4f} ms")
+    check(err <= 1e-12, "the sparse assembly disagrees with the dense product")
+    # the ELL products against cuSPARSE CSR (torch.sparse) on the same data
+    x = torch.rand(1, prob.n, generator=gen, device=device, dtype=torch.float64)
+    y = torch.rand(1, prob.m, generator=gen, device=device, dtype=torch.float64)
+    csr = model.A.tocsr()
+    A_csr = torch.sparse_csr_tensor(*(torch.as_tensor(a, device=device) for a in (
+        csr.indptr.astype(np.int64), csr.indices.astype(np.int64), csr.data)), size=csr.shape)
+    AT_csr = A_csr.t().to_sparse_csr()
+    ax, aty = prob.matvec(x)[0], prob.rmatvec(y)[0]
+    err = max(float((ax[: model.ncon] - A_csr @ x[0, : model.nvar]).abs().max() / ax.abs().max()),
+              float((aty[: model.nvar] - AT_csr @ y[0, : model.ncon]).abs().max() / aty.abs().max()))
+    times = [cuda_ms(fn, reps=50) for fn in (
+        lambda: prob.matvec(x), lambda: A_csr @ x[0, : model.nvar],
+        lambda: prob.rmatvec(y), lambda: AT_csr @ y[0, : model.ncon])]
+    log(f"fp64 products of one tall lane: A x by the ELL gather {times[0]:.4f} ms, by cuSPARSE CSR "
+        f"{times[1]:.4f} ms; A' y {times[2]:.4f} / {times[3]:.4f} ms; agreement {err:.3e} relative")
+    check(err <= 1e-12, "the ELL products disagree with cuSPARSE")
+
+
+def phase_sparse_against_dense(device, dense_run) -> int:
+    """The LP bench suite of the main path on the ELL route, on the same
+    (rhs-scaled) models: same statuses, iterations within one, objectives
+    to 1e-7.  Returns its chol_inv launches."""
+    models = dense_run["models"]
+    chol_inv.launches = 0
+    t0 = time.time()
+    stats = mtt.madipm_batch(models, device=device, sparse=True, **BENCH_OPTIONS)
+    whole = time.time() - t0
+    launches = chol_inv.launches
+    iters = [s.iter for s in stats]
+    gaps = [abs(a.objective - b.objective) / max(1.0, abs(b.objective))
+            for a, b in zip(stats, dense_run["stats"])]
+    log(f"LP bench suite on the ELL route: {sum(s.success for s in stats)}/{len(stats)} solved, "
+        f"iterations {iters} (dense {[s.iter for s in dense_run['stats']]}), wall "
+        f"{stats[0].solver_time:.4f} s, {sum(iters) / stats[0].solver_time:.2f} iter/s, packing and "
+        f"upload {whole - stats[0].solver_time:.2f} s, chol_inv launches {launches}; objectives "
+        f"against the dense route {max(gaps):.3e} relative (worst)")
+    check([s.status for s in stats] == [s.status for s in dense_run["stats"]],
+          "the ELL and dense routes end in different statuses")
+    check(all(abs(a.iter - b.iter) <= 1 for a, b in zip(stats, dense_run["stats"])),
+          "the ELL and dense routes differ by more than one iteration")
+    check(max(gaps) <= 1e-7, "the ELL and dense routes disagree on the objectives")
+    return launches
+
+
+def phase_sparse_qp_certificate(device):
+    """The four K1 certificate QPs of phase 7 on the ELL route."""
+    worst = 0.0
+    for deg in (False, True):
+        for seed in (1, 2):
+            qp, info = known_optimum_qp(512, 1024, seed=seed + 512, degenerate=deg, sparse_q=True)
+            kkt, obj_err = certify(qp, info, device, f"{qp.name} seed {seed + 512} k1 sparse",
+                                   sparse=True, kkt_system=mtt.KKTSystem.CONDENSED, **QP_CERT_OPTIONS)
+            check(obj_err <= 1e-6, f"sparse K1 certificate seed {seed + 512}: objective off")
+            worst = max(worst, kkt)
+    log(f"certificate: 4/4 K1 QPs on the ELL route at rel-KKT <= 1e-8 (worst {worst:.3e})")
+
+
+def phase_from_mps(device):
+    """``from_mps`` on the two sample files, dense and ELL."""
+    for path, want in MPS_FILES.items():
+        for sparse in (None, True):
+            st = mtt.from_mps(path, device=device, sparse=sparse, rethrow_error=True,
+                              print_level=mtt.PrintLevel.ERROR)
+            log(f"from_mps {path} sparse={sparse}: {st.status.name}, iter {st.iter}, "
+                f"objective {st.objective!r}")
+            check(st.success and abs(st.objective - want) <= 1e-6, f"from_mps {path} failed")
 
 
 def main() -> int:
@@ -474,10 +629,16 @@ def main() -> int:
     log(f"build: {lib.name} in {time.time() - t0:.2f} s")
 
     rows = phase_kernel()
-    lp_launches = phase_main_path("cuda")
+    lp_run = phase_main_path("cuda")
     phase_certificate("cuda")
     qp_inv_launches, qp_chol_launches = phase_qp_main_path("cuda")
     phase_qp_certificate("cuda")
+    sparse_launches, tall = phase_sparse_tall("cuda")
+    phase_sparse_auto_and_determinism(tall[0], "cuda")
+    del tall
+    phase_sparse_against_dense("cuda", lp_run)
+    phase_sparse_qp_certificate("cuda")
+    phase_from_mps("cuda")
     log(f"total {time.time() - t0:.1f} s")
 
     source = "madipm_tpu_torch/csrc/chol_inv.cu"
@@ -485,14 +646,17 @@ def main() -> int:
     # launches of that path's timed run
     kernels = [
         dict(name="chol_inv", route="cuda", source=source, path="LP main path (NORMAL)",
-             replaces="madipm_tpu/ops/pallas_chol.py:239", launches=lp_launches,
-             **rows["chol_inv", torch.float32]),
+             replaces="madipm_tpu/ops/pallas_chol.py:239", launches=lp_run["chol_inv"],
+             **rows["chol_inv", torch.float32, 1024]),
         dict(name="chol_inv", route="cuda", source=source, path="QP main path (K1, CHOLESKY_INV)",
              replaces="madipm_tpu/ops/pallas_chol.py:239", launches=qp_inv_launches,
-             **rows["chol_inv", torch.float64]),
+             **rows["chol_inv", torch.float64, 1024]),
         dict(name="cholesky", route="cuda", source=source, path="QP main path (K1, CHOLESKY, use_pallas)",
              replaces="madipm_tpu/ops/pallas_chol.py:225", launches=qp_chol_launches,
-             **rows["cholesky", torch.float64]),
+             **rows["cholesky", torch.float64, 1024]),
+        dict(name="chol_inv", route="cuda", source=source, path="sparse LP path (NORMAL, ELL)",
+             replaces="madipm_tpu/ops/pallas_chol.py:239", launches=sparse_launches,
+             **rows["chol_inv", torch.float32, 2048]),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,20 +1,25 @@
 """Top-level solver API: the counterpart of ``madipm_tpu/api.py``.
 
-    QuadraticModel (host) -> slack_form -> pad_to_device (one-lane TorchQP)
+    QuadraticModel (host) -> slack_form
+      -> pad_to_device (one-lane TorchQP) or, on the sparse route,
+         pad_sparse_to_device (one-lane SparseTorchQP)
       -> solver.driver.solve_device -> IPMStats (unscaled, input variables)
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from .models.qp import QuadraticModel, pad_to_device, slack_form
+from .models.sparse import pad_sparse_to_device
 from .solver import driver
 from .utils.logging import Logger
-from .utils.options import load_options
+from .utils.options import KKTSystem, load_options
 from .utils.stats import IPMStats
 from .utils.status import Status
 
@@ -41,6 +46,19 @@ def _synchronize(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+def use_sparse(slack_model: QuadraticModel) -> bool:
+    """The automatic choice of the sparse route (the JAX package's rule):
+    an LP whose Jacobian has more than 64e6 entries and a
+    density under 2%, judged after ``slack_form``."""
+    dense_entries = slack_model.ncon * slack_model.nvar
+    density = slack_model.A.nnz / max(1, dense_entries)
+    return (not slack_model.is_qp) and dense_entries > 64_000_000 and density < 0.02
+
+
+#: the pattern the sparse route packs for each KKT system it supports
+SPARSE_PATTERNS = {KKTSystem.NORMAL: "normal", KKTSystem.CONDENSED: "condensed"}
+
+
 class MPCSolver:
     """Holds the transformed device problem and its configuration."""
 
@@ -50,8 +68,12 @@ class MPCSolver:
         dtype: torch.dtype = torch.float64,
         pad_multiple: int = 128,
         device=None,
+        sparse: Optional[bool] = None,
         **options,
     ):
+        """``sparse=None`` takes the ELL route of ``models/sparse.py`` by
+        :func:`use_sparse`; a sparse QP is solved on K1 (CONDENSED), which
+        is chosen for it when no ``kkt_system`` is given."""
         _ensure_fp32_matmul()
         self.model = model
         self.opt = options.pop("options", None) or load_options(**options)
@@ -59,9 +81,27 @@ class MPCSolver:
         self.device = torch.device(device) if device is not None else default_device()
         t0 = time.time()
         self.slack_model = slack_form(model)
-        self.prob = pad_to_device(
-            self.slack_model, dtype=self.dtype, pad_multiple=pad_multiple, device=self.device
-        )
+        if sparse is None:
+            sparse = use_sparse(self.slack_model)
+        if sparse:
+            kkt = self.opt.resolved_kkt(self.slack_model.is_qp)
+            if self.slack_model.is_qp and kkt != KKTSystem.CONDENSED:
+                if self.opt.kkt_system is not None:
+                    raise ValueError(f"sparse QPs require kkt_system=CONDENSED, got {kkt}")
+                kkt = KKTSystem.CONDENSED
+                self.opt = dataclasses.replace(self.opt, kkt_system=kkt)
+            if kkt not in SPARSE_PATTERNS:
+                raise ValueError(
+                    f"the sparse path supports NORMAL and CONDENSED KKT systems, got {kkt}"
+                )
+            self.prob = pad_sparse_to_device(
+                self.slack_model, dtype=self.dtype, pad_multiple=pad_multiple,
+                device=self.device, kkt=SPARSE_PATTERNS[kkt],
+            )
+        else:
+            self.prob = pad_to_device(
+                self.slack_model, dtype=self.dtype, pad_multiple=pad_multiple, device=self.device
+            )
         self.cfg = driver.make_config(self.opt, is_qp=self.prob.is_qp, dtype=self.dtype)
         self.init_time = time.time() - t0
 
@@ -157,7 +197,8 @@ def madipm(model: QuadraticModel, **options) -> IPMStats:
     """Solve an LP or a convex QP with the Mehrotra predictor-corrector
     interior-point method.  ``device`` (default: the first CUDA device;
     without one, ``device="cpu"`` must be given) and ``dtype`` go to
-    :class:`MPCSolver`, the rest are IPMOptions.  A maximization model
+    :class:`MPCSolver`, and so does ``sparse`` (None: the automatic
+    choice of the ELL route); the rest are IPMOptions.  A maximization model
     (concave Q) is negated on entry and its objective flipped back."""
     if not model.minimize:
         model = QuadraticModel(

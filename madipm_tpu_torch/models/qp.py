@@ -343,6 +343,11 @@ class TorchQP:
     def device(self) -> torch.device:
         return self.c.device
 
+    @property
+    def dense_A(self) -> torch.Tensor:
+        """The dense Jacobian (B, m, n), which the AUGMENTED systems need."""
+        return self.A
+
     @cached_property
     def free_mask(self) -> torch.Tensor:
         """Live, non-fixed variables: the columns the KKT system sees."""

@@ -8,7 +8,10 @@
   quasi-definite ``[Sigma+Q, A'; A, del_c I]`` of size n+m with unpivoted
   LDL' (LDL, LDL_INV) or LU, after a symmetric diagonal scaling for K2.5.
 
-One system per lane.  The SPD matrices are Jacobi-scaled before the factor;
+One system per lane, on a dense ``TorchQP`` or a sparse ``SparseTorchQP``
+(models/sparse.py): NORMAL and CONDENSED reach the Jacobian only through
+the problem's operators; AUGMENTED needs ``dense_A``, which the sparse
+class refuses with NotImplementedError.  The SPD matrices are Jacobi-scaled before the factor;
 with a factor dtype below the solve dtype the factor is only the
 preconditioner of an fp64 PCG on the exact operator and is shifted by
 PRECOND_SHIFT (K1 keeps the PCG even with an fp64 factor).  CHOLESKY_INV
@@ -144,7 +147,7 @@ def _assemble_augmented(prob: TorchQP, sigma, del_c, factor_dtype):
     pinned: structurally empty rows get a unit pivot like padded rows (with
     a tiny del_c theirs would be ~0)."""
     free = prob.free_mask
-    A_eff = (prob.A * free.unsqueeze(-2)).to(factor_dtype)
+    A_eff = (prob.dense_A * free.unsqueeze(-2)).to(factor_dtype)
     H = prob.add_quad(torch.diag_embed(sigma.to(factor_dtype)), factor_dtype)
     live = prob.row_mask & (torch.sum(A_eff * A_eff, dim=-1) > 0)
     du = torch.where(live, del_c.to(factor_dtype), 1.0)

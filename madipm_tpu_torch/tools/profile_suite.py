@@ -1,6 +1,6 @@
 """Where the time of one batched solve goes on the GPU.
 
-    python3 -m madipm_tpu_torch.tools.profile_suite [--suite lp|qp|qp_k2] [--runs 3]
+    python3 -m madipm_tpu_torch.tools.profile_suite [--suite lp|qp|qp_k2|sparse_lp] [--runs 3]
 
 Solves a bench suite with ``madipm_batch`` (a warm run, then ``--runs``
 timed runs on the rhs scaled by 1 + 1e-4 r), then one more run under
@@ -9,7 +9,8 @@ launches per batch iteration, the device's busy share of the best wall
 and the device time by kernel name.  Suites: ``lp`` (8 LPs, m=1024,
 n=2048, NORMAL, fp32 CHOLESKY_INV + fp64 PCG), ``qp`` (8 QPs, m=512,
 n=1024, K1 CONDENSED, fp64 CHOLESKY_INV + PCG), ``qp_k2`` (4 QPs, m=256,
-n=512, AUGMENTED + LDL).  It needs a CUDA device and prints the card's
+n=512, AUGMENTED + LDL), ``sparse_lp`` (4 LPs, m=2048, n=32768, density
+0.004, the ELL route with ``lp``'s options).  It needs a CUDA device and prints the card's
 name and power limit first.
 """
 
@@ -33,12 +34,15 @@ _BASE = dict(tol=1e-8, max_iter=300, print_level=mtt.PrintLevel.ERROR)
 def _suite(name: str):
     """(models, options) of a named suite."""
     base = dict(_BASE, regularization=mtt.FixedRegularization(1e-8, -1e-8))
+    lp_options = dict(
+        base, linear_solver=mtt.LinearSolver.CHOLESKY_INV, factor_dtype="float32",
+        refinement_steps=12, pcg_adaptive_tol=True, predictor_pcg_budget=0,
+        pcg_tol_cap=1e-6, pcg_tol_floor=1e-8,
+    )
     if name == "lp":
-        return make_suite(k=8, n=2048, m=1024, density=0.15), dict(
-            base, linear_solver=mtt.LinearSolver.CHOLESKY_INV, factor_dtype="float32",
-            refinement_steps=12, pcg_adaptive_tol=True, predictor_pcg_budget=0,
-            pcg_tol_cap=1e-6, pcg_tol_floor=1e-8,
-        )
+        return make_suite(k=8, n=2048, m=1024, density=0.15), lp_options
+    if name == "sparse_lp":
+        return make_suite(k=4, n=32768, m=2048, density=0.004), dict(lp_options, sparse=True)
     if name == "qp":
         return make_qp_suite(k=8, m=512, n=1024, density=0.15), dict(
             base, kkt_system=mtt.KKTSystem.CONDENSED, linear_solver=mtt.LinearSolver.CHOLESKY_INV,
@@ -58,7 +62,7 @@ def _scaled(models, r: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--suite", default="qp", choices=("lp", "qp", "qp_k2"))
+    ap.add_argument("--suite", default="qp", choices=("lp", "qp", "qp_k2", "sparse_lp"))
     ap.add_argument("--runs", type=int, default=3)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -24,7 +24,8 @@ from madipm_tpu.parallel.batch import madipm_batch as jax_madipm_batch
 torch.set_num_threads(2)
 
 ACC = dict(factor_dtype="float32", refinement_steps=12, pcg_adaptive_tol=True,
-           predictor_pcg_budget=0, pcg_tol_floor=1e-8, fp64_matvec="emulated")
+           predictor_pcg_budget=0, pcg_tol_floor=1e-8, fp64_matvec="emulated",
+           pad_multiple=32)  # the JAX package compiles this configuration faster at 32
 
 
 def _opts(pkg, config):

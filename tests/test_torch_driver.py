@@ -67,7 +67,7 @@ def _lp(seed, n=80, m=40):
 
 @pytest.fixture(scope="module")
 def probs():
-    jp = jqp.pad_to_device(jqp.slack_form(_lp(3)))
+    jp = jqp.pad_to_device(jqp.slack_form(_lp(3)), pad_multiple=32)
     return jp, TorchQP.from_numpy({k: np.asarray(getattr(jp, k)) for k in FIELDS})
 
 

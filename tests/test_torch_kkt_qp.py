@@ -2,9 +2,9 @@
 against madipm_tpu.ops.kkt on the same DeviceQP fields.
 
 Two lanes (two padded QPs with a fixed column and an empty row, n=48,
-m=20 -> 128 columns, 128 rows) at a random interior iterate, del_w = 1e-8,
-del_c = -1e-8, fp64 factors.  Tolerances, relative to the largest entry of
-the JAX result:
+m=20 -> 128 columns, 128 rows; 64 and 32 for LDL_INV) at a random
+interior iterate, del_w = 1e-8, del_c = -1e-8, fp64 factors.
+Tolerances, relative to the largest entry of the JAX result:
 
 - assembly (C, K, gamma, live): 1e-12;
 - K2 / K2.5 factors and directions (LDL, LDL_INV, LU + refinement): 1e-8.
@@ -79,14 +79,25 @@ def _iterate(jp, rng):
                 rp=rng.standard_normal(jp.m) * np.asarray(jp.row_mask))
 
 
-@pytest.fixture(scope="module")
-def lanes():
+def _lanes(pad_multiple):
     rng = np.random.default_rng(11)
-    jps = [jqp.pad_to_device(jqp.slack_form(_qp(s))) for s in (1, 2)]
+    jps = [jqp.pad_to_device(jqp.slack_form(_qp(s)), pad_multiple=pad_multiple) for s in (1, 2)]
     its = [_iterate(jp, rng) for jp in jps]
     tp = TorchQP.from_numpy({k: np.stack([np.asarray(getattr(jp, k)) for jp in jps]) for k in FIELDS})
     tit = {k: torch.tensor(np.stack([i[k] for i in its])) for k in its[0]}
     return jps, its, tp, tit
+
+
+@pytest.fixture(scope="module")
+def lanes():
+    return _lanes(128)
+
+
+@pytest.fixture(scope="module")
+def lanes32():
+    """The same lanes padded to 64 columns and 32 rows, for LDL_INV: the
+    JAX package's LDL_INV recursion compiles several times faster there."""
+    return _lanes(32)
 
 
 def _close(t, j, tol, what=""):
@@ -139,8 +150,8 @@ def test_assembly_matches(lanes):
 
 
 @pytest.mark.parametrize("kind, solver", list(CASES), ids=IDS)
-def test_factorize_and_solve_match(lanes, kind, solver):
-    jps, its, tp, tit = lanes
+def test_factorize_and_solve_match(request, kind, solver):
+    jps, its, tp, tit = request.getfixturevalue("lanes32" if solver == "LDL_INV" else "lanes")
     _, tc = _cfgs(kind, solver)
     jfac, jsolve = _jax_fns(kind, solver)
     ftol, dtol = CASES[kind, solver]

@@ -1,8 +1,8 @@
 """madipm_tpu_torch.madipm against madipm_tpu.madipm on the same LPs.
 
 Instances: two conftest.random_lp LPs (one with a third of the variables
-upper-bounded), one known-optimum LP and a maximization model, all
-padded to 128 x 128.  Per instance:
+upper-bounded), one known-optimum LP and a maximization model, padded
+to 128 x 128 (64 x 96 in the accelerator configuration).  Per instance:
 
 - fp64 CHOLESKY (the CPU configuration): same status, same iteration
   count, objective to 1e-10 relative;
@@ -26,7 +26,8 @@ torch.set_num_threads(2)
 
 BASE = dict(tol=1e-8, max_iter=300)
 ACC = dict(factor_dtype="float32", refinement_steps=12, pcg_adaptive_tol=True,
-           predictor_pcg_budget=0, pcg_tol_floor=1e-8, fp64_matvec="emulated")
+           predictor_pcg_budget=0, pcg_tol_floor=1e-8, fp64_matvec="emulated",
+           pad_multiple=32)  # the JAX package compiles this configuration faster at 32
 
 
 def _opts(pkg, config):

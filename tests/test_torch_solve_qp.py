@@ -57,14 +57,17 @@ CASES = {
     "k2-default-known": ("known", {}),
     "k2-default-known_deg": ("known_deg", {}),
     "k2-default-portfolio": ("portfolio", {}),
-    "k2-ldl_inv-known": ("known", dict(linear_solver="LDL_INV")),
+    # padded to 32 (these two): the JAX package's LDL_INV and CHOLESKY_INV
+    # recursions compile several times faster than at 128
+    "k2-ldl_inv-known": ("known", dict(linear_solver="LDL_INV", pad_multiple=32)),
     "k2-lu-known": ("known", dict(linear_solver="LU")),
     "k25-ldl-known": ("known", dict(kkt_system="SCALED_AUGMENTED")),
     "k1-cholesky-dense": ("dense", dict(kkt_system="CONDENSED")),
     "k1-cholesky-known": ("known", dict(kkt_system="CONDENSED")),
     "k1-cholesky-known_deg": ("known_deg", dict(kkt_system="CONDENSED")),
     "k1-cholesky-portfolio": ("portfolio", dict(kkt_system="CONDENSED")),
-    "k1-cholesky_inv-dense": ("dense", dict(kkt_system="CONDENSED", linear_solver="CHOLESKY_INV")),
+    "k1-cholesky_inv-dense": ("dense", dict(kkt_system="CONDENSED", linear_solver="CHOLESKY_INV",
+                                            pad_multiple=32)),
     "k1-cholesky-lp": ("lp", dict(kkt_system="CONDENSED")),
     "k2-ldl-lp": ("lp", dict(kkt_system="AUGMENTED")),
     "k2-check_residual-known_deg": ("known_deg", dict(check_residual=True)),
