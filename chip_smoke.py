@@ -40,7 +40,24 @@ Runs, in order, and fails (non-zero exit) at the first phase that fails:
    argument, which must take the ELL route; two assemblies of one tall
    lane, bit-identical and equal to the dense product; the LP bench suite
    of phase 4 and the four K1 certificate QPs of phase 7 on the ELL route,
-   against the dense results; ``from_mps`` on the two sample files.
+   against the dense results; ``from_mps`` on the two sample files;
+9. the structured suite (``structured_suite(scale=4)``: transports up to
+   128 x 192, network flows, staircases, two portfolio QPs) one instance at
+   a time through the default (logged) driver with CHOLESKY and
+   ``use_pallas=True`` (NORMAL for the LPs, CONDENSED for the QPs, both
+   through the fp64 ``cholesky`` kernel), the tables to a file under
+   ``madipm_tpu_torch/_build/``: 8/8, the LP objectives at HiGHS's to 1e-6,
+   the QPs to rel-KKT <= 1e-8; then the largest transport rebuilt through
+   ``Model``, at the generator instance's objective and duals to 1e-8;
+10. the other drivers on one LP bench instance (1024 x 2048): the timed
+   driver (its eval / linear-solve / step split), the chunked driver
+   (``max_wall_time`` 0 and 300), ``trace_dir`` (a trace naming the
+   kernel), a checkpoint after 5 iterations resumed, and a warm start of
+   the instance with its rhs scaled by 1+1e-4;
+11. the solver options ``pcg_flex``, ``precond_refine`` and
+   ``factor_precision`` on the LP bench suite of phase 4, each run beside
+   a plain one: 8/8 with the first two, the iterates of "highest" equal
+   to the plain run's bit for bit, "high" and "default" reported.
 
 Each main path is driven with the launch counters set to 0 just before it
 and read just after.  The last two lines are the kernel table and
@@ -61,15 +78,21 @@ import numpy as np
 import torch
 
 import madipm_tpu_torch as mtt
+from madipm_tpu_torch.modeling import matmul
 from madipm_tpu_torch.models.generators import (
     known_optimum_lp,
     known_optimum_qp,
     make_qp_suite,
     make_suite,
+    structured_suite,
 )
 from madipm_tpu_torch.ops import block_chol, chol_inv, linalg
 from madipm_tpu_torch.parallel.batch import bucket_pad_sparse
-from madipm_tpu_torch.utils import sync
+from madipm_tpu_torch.solver import driver
+from madipm_tpu_torch.utils import checkpoint, sync
+
+#: where the logs, the trace and the checkpoint of phases 9-10 go (ignored by git)
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "madipm_tpu_torch", "_build")
 
 #: the sample files and the objectives the CPU tests hold for them
 MPS_FILES = {
@@ -612,6 +635,182 @@ def phase_from_mps(device):
             check(st.success and abs(st.objective - want) <= 1e-6, f"from_mps {path} failed")
 
 
+def structured_options(model, log_file: str, first: bool) -> dict:
+    """The structured suite's options: the default (logged) driver through
+    the fp64 cholesky kernel; the first instance's table on the console
+    and every table in ``log_file`` (with a quiet console the file sink
+    still selects the logged driver)."""
+    opts = dict(linear_solver=mtt.LinearSolver.CHOLESKY, use_pallas=True, output_file=log_file,
+                rethrow_error=True)
+    if model.Q is not None:
+        opts["kkt_system"] = mtt.KKTSystem.CONDENSED
+    if not first:
+        opts.update(print_level=mtt.PrintLevel.ERROR, file_print_level=mtt.PrintLevel.INFO)
+    return opts
+
+
+def linprog_objective(qp) -> float:
+    from scipy.optimize import linprog
+
+    bounds = [(lo if np.isfinite(lo) else None, hi if np.isfinite(hi) else None)
+              for lo, hi in zip(qp.lvar, qp.uvar)]
+    res = linprog(qp.c, A_eq=qp.A, b_eq=qp.lcon, bounds=bounds, method="highs")
+    check(res.status == 0, f"HiGHS did not solve {qp.name}")
+    return float(res.fun)
+
+
+def phase_structured(device):
+    """Phase 9: the structured suite through the logged driver, one
+    instance at a time; returns (cholesky launches, factor sizes, the
+    largest transport and its stats, its options)."""
+    log_file = os.path.join(OUT_DIR, "structured_suite.log")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    if os.path.exists(log_file):
+        os.remove(log_file)
+    suite = structured_suite(scale=4)
+    chol_inv.launches = chol_inv.cholesky_launches = 0
+    sizes, results, t0 = set(), [], time.time()
+    for i, qp in enumerate(suite):
+        opts = structured_options(qp, log_file, first=i == 0)
+        prob = mtt.MPCSolver(qp, device=device, **opts).prob
+        sizes.add(prob.n if qp.Q is not None else prob.m)  # the factor's order
+        del prob
+        st = mtt.madipm(qp, device=device, **opts)
+        if qp.Q is None:
+            ref = linprog_objective(qp)
+            err = abs(st.objective - ref) / max(1.0, abs(ref))
+            log(f"structured {qp.name} ({qp.ncon} x {qp.nvar}): {st.status.name}, iter {st.iter}, "
+                f"objective {st.objective!r} (HiGHS {ref!r}, rel err {err:.3e}), {st.solver_time:.3f} s")
+            check(st.success and err <= 1e-6, f"structured {qp.name}: not at HiGHS's objective")
+        else:
+            kkt = rel_kkt(qp, st)
+            log(f"structured {qp.name} ({qp.ncon} x {qp.nvar}, K1): {st.status.name}, iter {st.iter}, "
+                f"objective {st.objective!r}, rel-KKT {kkt:.3e}, {st.solver_time:.3f} s")
+            check(st.success and kkt <= 1e-8, f"structured {qp.name}: rel-KKT above 1e-8")
+        results.append((qp, st, opts))
+    launches = chol_inv.cholesky_launches
+    with open(log_file) as fh:
+        rows = sum(1 for line in fh if line[:4].strip().isdigit())
+    log(f"structured suite: 8/8 solved in {time.time() - t0:.2f} s, {rows} table rows in {log_file}, "
+        f"cholesky launches {launches}, chol_inv launches {chol_inv.launches}, factor sizes {sorted(sizes)}")
+    check(launches > 0, "the structured suite never launched the cholesky kernel")
+    check(rows == sum(st.iter + 1 for _, st, _ in results), "the log file lacks table rows")
+    transport = max((r for r in results if r[0].name.startswith("transport")), key=lambda r: r[0].nvar)
+    return launches, sorted(sizes), transport
+
+
+def phase_model(device, transport):
+    """Phase 9b: the largest transport rebuilt through Model and solved
+    with the suite's options: its objective and duals against the
+    generator instance's solve."""
+    qp, ref, opts = transport
+    m = mtt.Model(qp.name, device=device, **dict(opts, print_level=mtt.PrintLevel.ERROR,
+                                                  file_print_level=mtt.PrintLevel.INFO))
+    x = m.add_variables(qp.nvar, lb=qp.lvar, ub=qp.uvar)
+    rows = m.add_constraint(matmul(qp.A, x) == qp.lcon)
+    m.minimize(qp.c @ x)
+    st = m.optimize()
+    err = abs(st.objective - ref.objective) / max(1.0, abs(ref.objective))
+    dual_err = float(np.max(np.abs(m.dual(rows) + ref.multipliers)) / max(1.0, np.max(np.abs(ref.multipliers))))
+    log(f"Model {qp.name}: {st.status.name}, iter {st.iter} (generator instance {ref.iter}), objective "
+        f"rel err {err:.3e}, duals rel err {dual_err:.3e}, {st.solver_time:.3f} s")
+    check(st.success and err <= 1e-8 and dual_err <= 1e-8, "the Model solve disagrees with the generator's")
+
+
+def phase_drivers(device):
+    """Phase 10: the timed and chunked drivers, trace_dir, a checkpoint
+    and a warm start on one LP bench instance (fp32 chol_inv).  Returns
+    the timed run's split."""
+    qp = make_suite(k=1, n=2048, m=1024, density=0.15)[0]
+    solver = mtt.MPCSolver(qp, device=device, rethrow_error=True, **BENCH_OPTIONS)
+    fused = solver.solve()
+    check(fused.success, "the fused solve of the drivers' instance failed")
+    gap = lambda st: abs(st.objective - fused.objective) / max(1.0, abs(fused.objective))
+    timed = solver.solve(timed=True)
+    tm = solver.timers
+    log(f"timed driver: {timed.status.name}, iter {timed.iter} (fused {fused.iter}), wall "
+        f"{timed.solver_time:.4f} s (fused {fused.solver_time:.4f} s); linear_solver_time "
+        f"{tm['linear_solver_time']:.4f} s, eval_time {tm['eval_time']:.4f} s, step_time "
+        f"{tm['step_time']:.4f} s; objective {gap(timed):.3e} from the fused solve")
+    check(timed.success and 0.0 < timed.linear_solver_time <= timed.solver_time and gap(timed) <= 1e-8,
+          "the timed driver failed its checks")
+    zero = mtt.madipm(qp, device=device, max_wall_time=0.0, **BENCH_OPTIONS)
+    budget = mtt.madipm(qp, device=device, max_wall_time=300.0, rethrow_error=True, **BENCH_OPTIONS)
+    log(f"chunked driver: max_wall_time 0 -> {zero.status.name} at iter {zero.iter}; 300 -> "
+        f"{budget.status.name}, iter {budget.iter}, {budget.solver_time:.4f} s, objective "
+        f"{gap(budget):.3e} from the fused solve")
+    check(zero.status == mtt.Status.MAXIMUM_WALLTIME_EXCEEDED, "max_wall_time=0 did not stop the solve")
+    check(budget.success and gap(budget) <= 1e-8, "the chunked driver failed its checks")
+    trace_dir = os.path.join(OUT_DIR, "trace")
+    before = set(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else set()
+    traced = solver.solve(trace_dir=trace_dir)
+    new = sorted(set(os.listdir(trace_dir)) - before)
+    check(traced.success and len(new) == 1, "trace_dir wrote no trace file")
+    path = os.path.join(trace_dir, new[0])
+    with open(path) as fh:
+        text = fh.read()
+    log(f"trace_dir: {path}, {len(text) / 2**20:.1f} MiB, names chol_kernel: {'chol_kernel' in text}")
+    check("chol_kernel" in text, "the trace does not name the chol_kernel device kernel")
+    prob_s, _, st = driver.initialize(solver.cfg, solver.prob)
+    for _ in range(5):
+        st = driver.iteration(solver.cfg, prob_s, st)
+    ckpt = os.path.join(OUT_DIR, "checkpoint.npz")
+    checkpoint.save_state(ckpt, st)
+    resumed = checkpoint.resume(solver, checkpoint.load_state(ckpt, device=device))
+    log(f"checkpoint after 5 iterations, resumed: {resumed.status.name}, iter {resumed.iter}, "
+        f"objective {gap(resumed):.3e} from the uninterrupted solve")
+    check(resumed.success and resumed.iter >= 5 and gap(resumed) <= 1e-8, "the resumed solve failed its checks")
+    scaled = dataclasses.replace(qp, lcon=qp.lcon * (1 + 1e-4), ucon=qp.ucon * (1 + 1e-4))
+    solver2 = mtt.MPCSolver(scaled, device=device, rethrow_error=True, **BENCH_OPTIONS)
+    cold = solver2.solve()
+    warm = checkpoint.resume(solver2, checkpoint.warm_start_state(solver2, x0=fused.solution,
+                                                                  y0=fused.multipliers))
+    log(f"warm start (rhs x (1+1e-4)): {warm.status.name}, {warm.iter} iterations against {cold.iter} "
+        f"cold; objectives {abs(warm.objective - cold.objective) / max(1.0, abs(cold.objective)):.3e} apart")
+    check(warm.success and cold.success, "the warm-started solve failed")
+    return tm
+
+
+def measured_batch(label, models, device, options) -> dict:
+    """One madipm_batch run with the counters set to 0 just before it."""
+    chol_inv.launches = chol_inv.cholesky_launches = 0
+    sync.count = 0
+    stats = mtt.madipm_batch(models, device=device, **options)
+    iters = [s.iter for s in stats]
+    run = dict(stats=stats, chol_inv=chol_inv.launches, syncs=sync.count / max(iters),
+               wall=stats[0].solver_time, solved=sum(s.success for s in stats))
+    statuses = sorted({s.status.name: None for s in stats})
+    log(f"{label}: {run['solved']}/{len(stats)} solved ({', '.join(statuses)}), iterations {iters}, "
+        f"wall {run['wall']:.4f} s, "
+        f"{sum(iters) / run['wall']:.2f} iter/s, {run['syncs']:.2f} syncs per batch iteration, "
+        f"chol_inv launches {run['chol_inv']}")
+    return run
+
+
+def phase_options(device, models) -> dict:
+    """Phase 11: the A7b options on the LP bench suite (the rhs-scaled
+    models of phase 4), each run after a plain one.  Returns the pcg_flex
+    run."""
+    plain = measured_batch("options: plain", models, device, BENCH_OPTIONS)
+    runs = {}
+    for name, extra in (("pcg_flex", dict(pcg_flex=True)), ("precond_refine", dict(precond_refine=True)),
+                        ("highest", dict(factor_precision="highest")), ("high", dict(factor_precision="high")),
+                        ("default", dict(factor_precision="default"))):
+        runs[name] = measured_batch(f"options: {name}", models, device, dict(BENCH_OPTIONS, **extra))
+        final = all(s.status not in (mtt.Status.REGULAR, mtt.Status.INITIAL) for s in runs[name]["stats"])
+        finite = all(np.all(np.isfinite(s.solution)) for s in runs[name]["stats"] if s.success)
+        check(final and finite, f"options {name}: a lane without a final status or with non-finite results")
+    for name in ("pcg_flex", "precond_refine"):
+        check(runs[name]["solved"] == len(models), f"options {name}: the suite did not solve 8/8")
+    same = all(a.iter == b.iter and np.array_equal(a.solution, b.solution) and a.objective == b.objective
+               for a, b in zip(runs["highest"]["stats"], plain["stats"]))
+    log(f"options: factor_precision='highest' bit-equal to the plain run: {same}; torch default "
+        f"float32 matmul precision after the runs: {torch.get_float32_matmul_precision()}")
+    check(same, "factor_precision='highest' changed the iterates")
+    check(torch.get_float32_matmul_precision() == "highest", "factor_precision leaked out of its scope")
+    return runs["pcg_flex"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
@@ -639,6 +838,17 @@ def main() -> int:
     phase_sparse_against_dense("cuda", lp_run)
     phase_sparse_qp_certificate("cuda")
     phase_from_mps("cuda")
+    structured_launches, sizes, transport = phase_structured("cuda")
+    phase_model("cuda", transport)
+    del transport
+    phase_drivers("cuda")
+    flex_run = phase_options("cuda", lp_run["models"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    for n in sizes:  # the structured suite's factors, the largest kept for the table
+        S = random_spd(1, n, torch.float64, gen)
+        structured_row = check_kernel("cholesky", S, kernel_cholesky, plain_cholesky, torch.linalg.cholesky_ex,
+                                      flops=float(n) ** 3 / 3, nbytes=2 * n * n * 8, plain_reps=1)
     log(f"total {time.time() - t0:.1f} s")
 
     source = "madipm_tpu_torch/csrc/chol_inv.cu"
@@ -657,6 +867,12 @@ def main() -> int:
         dict(name="chol_inv", route="cuda", source=source, path="sparse LP path (NORMAL, ELL)",
              replaces="madipm_tpu/ops/pallas_chol.py:239", launches=sparse_launches,
              **rows["chol_inv", torch.float32, 2048]),
+        dict(name="cholesky", route="cuda", source=source,
+             path="structured suite (logged driver, NORMAL and K1 CHOLESKY, use_pallas), largest factor",
+             replaces="madipm_tpu/ops/pallas_chol.py:225", launches=structured_launches, **structured_row),
+        dict(name="chol_inv", route="cuda", source=source, path="LP main path with pcg_flex",
+             replaces="madipm_tpu/ops/pallas_chol.py:239", launches=flex_run["chol_inv"],
+             **rows["chol_inv", torch.float32, 1024]),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,7 +3,10 @@
     QuadraticModel (host) -> slack_form
       -> pad_to_device (one-lane TorchQP) or, on the sparse route,
          pad_sparse_to_device (one-lane SparseTorchQP)
-      -> solver.driver.solve_device -> IPMStats (unscaled, input variables)
+      -> solver.driver: solve_logged (the default at print_level <= INFO),
+         solve_timed, solve_device_chunked (a finite max_wall_time) or
+         solve_device
+      -> IPMStats (unscaled, input variables)
 """
 
 from __future__ import annotations
@@ -18,8 +21,8 @@ import torch
 from .models.qp import QuadraticModel, pad_to_device, slack_form
 from .models.sparse import pad_sparse_to_device
 from .solver import driver
-from .utils.logging import Logger
-from .utils.options import KKTSystem, load_options
+from .utils.logging import Logger, profile_trace
+from .utils.options import KKTSystem, PrintLevel, load_options
 from .utils.stats import IPMStats
 from .utils.status import Status
 
@@ -103,29 +106,54 @@ class MPCSolver:
                 self.slack_model, dtype=self.dtype, pad_multiple=pad_multiple, device=self.device
             )
         self.cfg = driver.make_config(self.opt, is_qp=self.prob.is_qp, dtype=self.dtype)
+        #: eval / linear-solve / step seconds of the last ``solve(timed=True)``
+        self.timers = None
         self.init_time = time.time() - t0
 
-    def solve(self, logged: bool = None, timed: bool = False) -> IPMStats:
-        """Run the MPC loop (the fused driver).  The per-iteration table,
-        the phase-timed driver and a finite ``max_wall_time`` are ROADMAP
-        item A10: ``logged=True``, ``timed=True`` and ``max_wall_time`` below
-        1e6 raise NotImplementedError; ``logged=None`` runs unlogged."""
-        if logged or timed:
-            raise NotImplementedError("the logged and timed drivers are ROADMAP item A10")
-        if self.opt.max_wall_time < 1e6:
-            raise NotImplementedError("a finite max_wall_time is ROADMAP item A10")
+    def solve(self, logged: bool = None, trace_dir: str = None, timed: bool = False) -> IPMStats:
+        """Run the MPC loop, as the JAX package's ``solve`` chooses it:
+        ``timed=True`` runs the phase-timed driver (``linear_solver_time``
+        in the stats, the three phase times in ``self.timers``); else
+        ``logged`` (default: on when ``print_level``, or with an
+        ``output_file`` the lower of it and ``file_print_level``, is at most
+        INFO) prints the per-iteration table through the Logger; else a
+        ``max_wall_time`` below 1e6 runs the chunked driver that enforces
+        it; else the fused driver.  ``trace_dir`` writes a torch.profiler
+        trace of the solve there (``utils/logging.profile_trace``)."""
+        t0 = time.time()
+        if logged is None:
+            effective = self.opt.print_level
+            if self.opt.output_file:
+                effective = min(effective, self.opt.file_print_level)
+            logged = effective <= PrintLevel.INFO
         logger = Logger(
             print_level=self.opt.print_level,
             file_print_level=self.opt.file_print_level,
             output_file=self.opt.output_file,
         )
-        t0 = time.time()
+        lin_time = None
         # Host-side exceptions map to a status unless rethrow_error, as in
         # the JAX package; NaNs inside the loop map to
         # ERROR_IN_STEP_COMPUTATION there.
         try:
-            _, scale, state = driver.solve_device(self.cfg, self.prob)
-            _synchronize(self.device)
+            with profile_trace(trace_dir, self.device):
+                if timed:
+                    _, scale, state, self.timers = driver.solve_timed(
+                        self.cfg, self.prob, max_wall_time=self.opt.max_wall_time
+                    )
+                    lin_time = self.timers["linear_solver_time"]
+                elif logged:
+                    _, scale, state = driver.solve_logged(
+                        self.cfg, self.prob, print_fn=logger.info,
+                        max_wall_time=self.opt.max_wall_time,
+                    )
+                elif self.opt.max_wall_time < 1e6:
+                    _, scale, state = driver.solve_device_chunked(
+                        self.cfg, self.prob, self.opt.max_wall_time
+                    )
+                else:
+                    _, scale, state = driver.solve_device(self.cfg, self.prob)
+                _synchronize(self.device)
         except KeyboardInterrupt:
             if self.opt.rethrow_error:
                 raise
@@ -135,7 +163,7 @@ class MPCSolver:
                 raise
             logger.error(f"solve failed: {type(e).__name__}: {e}")
             return self._exit(logger, self._error_stats(Status.INTERNAL_ERROR, time.time() - t0))
-        stats = self._build_stats(scale, state, time.time() - t0)
+        stats = self._build_stats(scale, state, time.time() - t0, lin_time)
         logger.notice(
             f"EXIT: {stats.message()}  (iter={stats.iter}, "
             f"obj={stats.objective:.8e}, time={stats.total_time:.3f}s)"
@@ -168,7 +196,7 @@ class MPCSolver:
             solver_time=solver_time,
         )
 
-    def _build_stats(self, scale, state, solver_time) -> IPMStats:
+    def _build_stats(self, scale, state, solver_time, lin_time=None) -> IPMStats:
         m0, n0 = self.model.ncon, self.model.nvar
         s = state.to_numpy()
         osc = float(scale.obj_scale[0, 0])
@@ -190,6 +218,7 @@ class MPCSolver:
             total_time=solver_time + self.init_time,
             init_time=self.init_time,
             solver_time=solver_time,
+            linear_solver_time=lin_time,
         )
 
 

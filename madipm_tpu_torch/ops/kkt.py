@@ -19,13 +19,18 @@ factors through ``ops/chol_inv.chol_inv`` (the CUDA kernel on the GPU);
 CHOLESKY through ``torch.linalg`` or, with ``use_pallas``, through
 ``ops/chol_inv.cholesky`` (the factor-only CUDA kernel).
 
-The distributed branches are ROADMAP item A11; the flexible PCG,
-``precond_refine`` and ``factor_precision`` are A7b;
-``solver.driver.make_config`` rejects them.
+Three options apply when the factor runs below the solve precision:
+``use_flex_pcg`` (an fp64 flexible PCG whose preconditioner is a short
+low-precision CG on the retained matrix ``Smat``), ``precond_refine`` (one
+correction against ``Smat`` per preconditioner application, NORMAL only)
+and ``factor_precision`` (the float32 matmul precision of the factor
+attempt and the preconditioner applications on CUDA).  The distributed
+branches are ROADMAP item A11.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Optional
 
@@ -50,6 +55,16 @@ class KKTConfig:
     #: factor CHOLESKY systems through the hand-written factor-only kernel
     #: (``ops/chol_inv.cholesky``) instead of ``torch.linalg``
     use_pallas: bool = False
+    #: precondition the fp64 PCG with an inner factor-precision CG on
+    #: ``Smat`` (flexible PCG, Polak-Ribiere), NORMAL and CONDENSED
+    use_flex_pcg: bool = False
+    #: the JAX package's matmul-precision name for the factor attempt and
+    #: the preconditioner applications ("default", "high", "highest"; see
+    #: MATMUL_PRECISION); None leaves the global setting
+    factor_precision: Optional[str] = None
+    #: one correction per preconditioner application against the unshifted
+    #: Jacobi-scaled S, z + M^-1 (b - Smat z) (NORMAL only)
+    precond_refine: bool = False
 
 
 class NormalFactors(NamedTuple):
@@ -58,6 +73,9 @@ class NormalFactors(NamedTuple):
     dinv: torch.Tensor  # Sigma^-1 with fixed/padded columns zeroed (solve dtype)
     del_c: torch.Tensor  # (B, 1) dual regularization used in this factorization
     live: torch.Tensor  # rows coupled to variables (excludes padded and empty rows)
+    #: the Jacobi-scaled S before PRECOND_SHIFT (factor dtype), kept only for
+    #: use_flex_pcg / precond_refine with a factor below the solve dtype
+    Smat: Optional[torch.Tensor] = None
 
 
 class CondensedFactors(NamedTuple):
@@ -69,6 +87,9 @@ class CondensedFactors(NamedTuple):
     gamma: torch.Tensor  # (B, 1) 1/|del_c_eff| (solve dtype)
     del_c: torch.Tensor  # (B, 1) effective (negative) dual regularization
     live: torch.Tensor  # structurally nonempty constraint rows
+    #: the Jacobi-scaled C the factor was taken of, shift included (factor
+    #: dtype), kept only for use_flex_pcg with a factor below the solve dtype
+    Smat: Optional[torch.Tensor] = None
 
 
 class AugmentedFactors(NamedTuple):
@@ -85,9 +106,13 @@ def factors_from_numpy(cls, fields: dict, device=None, dtype=torch.float64):
     arrays named as the JAX package's factor tuples, one lane (unbatched
     arrays) each.  Floating fields keep their own precision when it is
     float32 (the factor dtype); per-lane scalars become (1, 1).  LU pivots
-    (an integer ``dfac``) are shifted from 0-based to torch's 1-based."""
+    (an integer ``dfac``) are shifted from 0-based to torch's 1-based.  An
+    absent ``Smat``, or the JAX package's 0-d placeholder, is None."""
     kw = {}
     for name in cls._fields:
+        if name == "Smat" and np.ndim(fields.get(name, 0)) == 0:
+            kw[name] = None
+            continue
         v = np.array(fields[name])  # a writable copy
         if name == "live":
             dt = torch.bool
@@ -164,6 +189,47 @@ def _assemble_augmented(prob: TorchQP, sigma, del_c, factor_dtype):
 #: healthy in fp32 when rows are nearly dependent.
 PRECOND_SHIFT = 1e-6
 
+#: torch.set_float32_matmul_precision for each of the JAX package's
+#: factor_precision names: one bf16 pass on the TPU ("default") becomes
+#: bf16 ("medium"), three passes ("high") TF32, six ("highest") full fp32.
+MATMUL_PRECISION = {"default": "medium", "high": "high", "highest": "highest"}
+
+
+@contextlib.contextmanager
+def matmul_precision(name: Optional[str], device: torch.device):
+    """Scope ``torch.set_float32_matmul_precision(MATMUL_PRECISION[name])``
+    to the block on a CUDA ``device`` and restore the global setting after
+    it, also when the block raises.  On the CPU it changes nothing: there
+    "medium" would route float32 products through oneDNN's bf16, which the
+    JAX package's CPU backend never does; float32 products stay float32, as
+    the reference's CPU runs keep them.  ``name`` None changes nothing."""
+    if name is None or device.type != "cuda":
+        yield
+        return
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(MATMUL_PRECISION[name])
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old)
+
+
+def _factor_precision(cfg: KKTConfig, rdtype: torch.dtype) -> Optional[str]:
+    """cfg.factor_precision where the factor runs below ``rdtype``."""
+    return cfg.factor_precision if cfg.factor_dtype != rdtype else None
+
+
+def _with_precision(f, name: Optional[str], device: torch.device):
+    """``f`` run under :func:`matmul_precision`."""
+    if name is None:
+        return f
+
+    def g(b):
+        with matmul_precision(name, device):
+            return f(b)
+
+    return g
+
 
 def _lanes(mask, like):
     """Reshape a (B, 1) lane mask to broadcast against ``like``."""
@@ -184,16 +250,21 @@ def _factor_spd(cfg: KKTConfig, Mhat: torch.Tensor):
     return fac, linalg.cholesky_is_ok(fac)
 
 
-def _jacobi_scaled(cfg: KKTConfig, M: torch.Tensor, rdtype):
-    """(jac, D^-1/2 M D^-1/2) with D = diag(M), shifted by PRECOND_SHIFT
-    when the factor is only a preconditioner."""
+def _jacobi_scaled(cfg: KKTConfig, M: torch.Tensor, rdtype, keep_unshifted=False):
+    """(jac, Mhat, Mraw): Mraw = D^-1/2 M D^-1/2 with D = diag(M), and
+    Mhat the same shifted by PRECOND_SHIFT when the factor is only a
+    preconditioner.  Mraw is None unless ``keep_unshifted``; unshifted,
+    the two are one tensor."""
     fdt = cfg.factor_dtype
     dM = torch.diagonal(M, dim1=-2, dim2=-1)
     jac = torch.rsqrt(torch.clamp(dM, min=torch.finfo(fdt).tiny))
     Mhat = M * jac.unsqueeze(-1) * jac.unsqueeze(-2)
+    Mraw = Mhat if keep_unshifted else None
     if cfg.refinement_steps > 0 and fdt != rdtype:
+        if keep_unshifted:
+            Mhat = Mhat.clone()
         torch.diagonal(Mhat, dim1=-2, dim2=-1).add_(PRECOND_SHIFT)
-    return jac, Mhat
+    return jac, Mhat, Mraw
 
 
 def factorize(cfg: KKTConfig, prob: TorchQP, x, zl, zu, del_w, del_c, force_ok=None):
@@ -208,21 +279,36 @@ def factorize(cfg: KKTConfig, prob: TorchQP, x, zl, zu, del_w, del_c, force_ok=N
     rdtype = prob.dtype
     fdt = cfg.factor_dtype
     spd = cfg.kind in (KKTSystem.NORMAL, KKTSystem.CONDENSED)
+    low = fdt != rdtype
+    precision = _factor_precision(cfg, rdtype)
 
     def attempt(dw, dc):
+        with matmul_precision(precision, x.device):
+            return _attempt(dw, dc)
+
+    def _attempt(dw, dc):
         sigma = build_sigma(prob, x, zl, zu, dw)
         if cfg.kind == KKTSystem.NORMAL:
             S, dinv, live = _assemble_normal(prob, sigma, dc, fdt)
-            jac, Shat = _jacobi_scaled(cfg, S, rdtype)
+            # Smat is the pre-shift Shat, as in the JAX package (its
+            # ``Shat_raw``): precond_refine corrects toward the true scaled
+            # S, and the flexible PCG's inner CG solves with the operator
+            # whose inverse the outer fp64 Krylov wants.  With the shifted
+            # matrix the inner CG would reproduce the factor's own solve.
+            need = (cfg.use_flex_pcg or cfg.precond_refine) and low
+            jac, Shat, Sraw = _jacobi_scaled(cfg, S, rdtype, keep_unshifted=need)
             fac, ok = _factor_spd(cfg, Shat)
-            factors = NormalFactors(L=fac, jac=jac, dinv=dinv, del_c=dc.to(rdtype), live=live)
+            factors = NormalFactors(L=fac, jac=jac, dinv=dinv, del_c=dc.to(rdtype), live=live,
+                                    Smat=Sraw)
         elif cfg.kind == KKTSystem.CONDENSED:
             C, gamma, live = _assemble_condensed(prob, sigma, dc, fdt)
-            jac, Chat = _jacobi_scaled(cfg, C, rdtype)
+            jac, Chat, _ = _jacobi_scaled(cfg, C, rdtype)
             fac, ok = _factor_spd(cfg, Chat)
             dc_eff = -torch.clamp(torch.abs(dc.to(rdtype)), min=CONDENSED_RELAX_MIN)
+            # K1 keeps the shifted Chat, as the JAX package does.
+            need = cfg.use_flex_pcg and low
             factors = CondensedFactors(L=fac, jac=jac, sigma=sigma, gamma=gamma.to(rdtype),
-                                       del_c=dc_eff, live=live)
+                                       del_c=dc_eff, live=live, Smat=Chat if need else None)
         else:
             K, live = _assemble_augmented(prob, sigma, dc, fdt)
             if cfg.kind == KKTSystem.SCALED_AUGMENTED:
@@ -272,7 +358,8 @@ def factorize(cfg: KKTConfig, prob: TorchQP, x, zl, zu, del_w, del_c, force_ok=N
         dc = torch.where(go, dc_n, dc)
         ok = torch.where(go, ok_n, ok)
         factors = type(factors)(*(
-            torch.where(_lanes(go, new), new, old) for new, old in zip(f_n, factors)
+            None if new is None else torch.where(_lanes(go, new), new, old)
+            for new, old in zip(f_n, factors)
         ))
     return factors, dw, dc, ok
 
@@ -309,20 +396,60 @@ def solve_condensed(
     return _solve_k2(cfg, prob, factors, rx, rp, return_products)
 
 
-def _spd_solve_fn(cfg: KKTConfig, factors):
+def _factor_solve(cfg: KKTConfig, L: torch.Tensor):
+    """b -> Mhat^-1 b with the stored factor (L, or L^-1 for CHOLESKY_INV)."""
+    if cfg.linear_solver == LinearSolver.CHOLESKY_INV:
+        return lambda b: block_chol.chol_inv_solve(L, b)
+    return lambda b: linalg.cholesky_solve(L, b)
+
+
+def _spd_solve_fn(cfg: KKTConfig, factors, rdtype):
     """b -> M^-1 b through the Jacobi scaling of a NORMAL or CONDENSED
-    factor: M = D^1/2 Mhat D^1/2  =>  M^-1 b = D^-1/2 Mhat^-1 D^-1/2 b."""
+    factor: M = D^1/2 Mhat D^1/2  =>  M^-1 b = D^-1/2 Mhat^-1 D^-1/2 b.
+    With precond_refine (NORMAL) one correction against the unshifted
+    Smat follows each application: z + Mhat^-1 (b - Smat z).  Runs under
+    the factor precision."""
     L, jac = factors.L, factors.jac
+    base = _factor_solve(cfg, L)
+    refine = cfg.precond_refine and isinstance(factors, NormalFactors) and factors.Smat is not None
 
     def solve_fn(b):
         bf = (b * jac).to(L.dtype)
-        if cfg.linear_solver == LinearSolver.CHOLESKY_INV:
-            z = block_chol.chol_inv_solve(L, bf)
-        else:
-            z = linalg.cholesky_solve(L, bf)
+        z = base(bf)
+        if refine:
+            z = z + base(bf - (factors.Smat @ z.unsqueeze(-1)).squeeze(-1))
         return z * jac
 
-    return solve_fn
+    return _with_precision(solve_fn, _factor_precision(cfg, rdtype), L.device)
+
+
+#: iteration budget of the inner low-precision CG of the flexible PCG
+MIXED_INNER_ITERS = 8
+
+
+def _mixed_inner_solver(cfg: KKTConfig, factors):
+    """r -> d with S d ~ r, computed in the factor precision alone: the
+    preconditioner of the flexible PCG (``madipm_tpu.ops.kkt``'s).
+
+    Each lane's residual is scaled to unit magnitude, moved into the
+    Jacobi-scaled space where ``Smat`` and its factor live, solved by
+    :func:`linalg.pcg_lowp` with ``Smat`` as the operator and the factor as
+    the preconditioner, and mapped back.
+    """
+    L, jac, Smat = factors.L, factors.jac, factors.Smat
+    fdt = L.dtype
+    solve_lp = _factor_solve(cfg, L)
+
+    def matvec_lp(v):
+        return (Smat @ v.unsqueeze(-1)).squeeze(-1)
+
+    def inner(r):
+        s = torch.clamp(torch.amax(torch.abs(r), dim=-1, keepdim=True), min=torch.finfo(r.dtype).tiny)
+        b_lp = ((r / s) * jac).to(fdt)
+        yhat = linalg.pcg_lowp(solve_lp, matvec_lp, b_lp, max_iters=MIXED_INNER_ITERS)
+        return s * (jac * yhat).to(r.dtype)
+
+    return inner
 
 
 def _solve_normal(cfg, prob, factors, rx, rp, pcg_budget, pcg_rtol, return_products):
@@ -331,7 +458,7 @@ def _solve_normal(cfg, prob, factors, rx, rp, pcg_budget, pcg_rtol, return_produ
     r2 = prob.matvec(dinv * rx) - rp
     r2 = torch.where(live, r2, 0.0)
     r_pcg = None
-    solve_fn = _spd_solve_fn(cfg, factors)
+    solve_fn = _spd_solve_fn(cfg, factors, rx.dtype)
 
     def matvec(v):
         # Exact fp64 operator, applied through A twice.
@@ -352,9 +479,16 @@ def _solve_normal(cfg, prob, factors, rx, rp, pcg_budget, pcg_rtol, return_produ
         else:
             rt = 1e-14 if pcg_rtol is None else pcg_rtol
             iters = 4 * cfg.refinement_steps
-        out = linalg.pcg(solve_fn, matvec, r2, max_iters=iters, rtol=rt,
-                         return_residual=return_products)
-        dy, r_pcg = out if return_products else (out, None)
+        if cfg.use_flex_pcg and factors.L.dtype != r2.dtype:
+            # Flexible PCG: the outer Krylov on the exact fp64 operator,
+            # each preconditioner application an inner CG in the factor
+            # precision; no tracked residual, so A dx is formed below.
+            dy = linalg.pcg_flex(_mixed_inner_solver(cfg, factors), matvec, r2,
+                                 max_iters=iters, rtol=rt)
+        else:
+            out = linalg.pcg(solve_fn, matvec, r2, max_iters=iters, rtol=rt,
+                             return_residual=return_products)
+            dy, r_pcg = out if return_products else (out, None)
     else:
         dy = solve_fn(r2).to(r2.dtype)
     dy = torch.where(live, dy, 0.0)
@@ -375,7 +509,7 @@ def _solve_k1(cfg, prob, factors, rx, rp, pcg_budget, pcg_rtol, return_products)
     live = factors.live
     gamma = factors.gamma
     rhs = torch.where(free, rx + gamma * prob.rmatvec(torch.where(live, rp, 0.0)), 0.0)
-    solve_fn = _spd_solve_fn(cfg, factors)
+    solve_fn = _spd_solve_fn(cfg, factors, rx.dtype)
 
     def matvec(v):
         vx = torch.where(free, v, 0.0)
@@ -387,7 +521,11 @@ def _solve_k1(cfg, prob, factors, rx, rp, pcg_budget, pcg_rtol, return_products)
     if cfg.refinement_steps > 0 and pcg_budget != 0:
         rt = 1e-14 if pcg_rtol is None else pcg_rtol
         iters = pcg_budget if pcg_budget is not None else 4 * cfg.refinement_steps
-        dx = linalg.pcg(solve_fn, matvec, rhs, max_iters=iters, rtol=rt)
+        if cfg.use_flex_pcg and factors.L.dtype != rhs.dtype:
+            dx = linalg.pcg_flex(_mixed_inner_solver(cfg, factors), matvec, rhs,
+                                 max_iters=iters, rtol=rt)
+        else:
+            dx = linalg.pcg(solve_fn, matvec, rhs, max_iters=iters, rtol=rt)
     else:
         dx = solve_fn(rhs).to(rhs.dtype)
     dx = torch.where(free, dx, 0.0)
@@ -414,7 +552,10 @@ def _solve_k2(cfg, prob, factors, rx, rp, return_products):
         raw = lambda b: block_chol.ldl_inv_solve(Lfac, dfac, b)
     else:
         raw = lambda b: linalg.ldl_solve(Lfac, dfac, b)
-    solve_fn = lambda b: (jac * raw((b * jac).to(Lfac.dtype))).to(rx.dtype)
+    solve_fn = _with_precision(
+        lambda b: (jac * raw((b * jac).to(Lfac.dtype))).to(rx.dtype),
+        _factor_precision(cfg, rx.dtype), Lfac.device,
+    )
 
     def matvec(v):
         # Exact fp64 augmented operator from the original pieces.

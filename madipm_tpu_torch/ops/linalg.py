@@ -4,9 +4,9 @@ PCG.
 Port of ``madipm_tpu/ops/linalg.py``: ``cholesky_factor``,
 ``cholesky_is_ok``, ``cholesky_solve`` and the LU helpers (torch.linalg, as
 the JAX package leaves these to XLA and jax.scipy), the unpivoted blocked
-``ldl_factor`` (plain torch, as it is plain JAX there), ``refine`` and
-``pcg``, batched over a leading lane dimension.  ``pcg_lowp`` and
-``pcg_flex`` are ROADMAP item A7b.
+``ldl_factor`` (plain torch, as it is plain JAX there), ``refine``,
+``pcg`` and the two loops of the flexible PCG (``pcg_lowp``, ``pcg_flex``),
+batched over a leading lane dimension.
 """
 
 from __future__ import annotations
@@ -238,4 +238,115 @@ def pcg(solve_fn, matvec_fn, rhs: torch.Tensor, max_iters: int, rtol=1e-14,
         best_rn = torch.where(go, brn_n, best_rn)
     if return_residual:
         return best_x, best_r
+    return best_x
+
+
+def _amax(v):
+    return torch.amax(torch.abs(v), dim=-1, keepdim=True)
+
+
+def _dot(a, b):
+    return torch.sum(a * b, dim=-1, keepdim=True)
+
+
+#: loop trips of :func:`pcg_lowp` between two reads of its exit flag
+PCG_LOWP_READ_EVERY = 4
+
+
+def pcg_lowp(solve_fn, matvec_fn, b: torch.Tensor, max_iters: int, rtol: float = 2e-6):
+    """Preconditioned CG entirely in the low (factor) precision, one system
+    per lane of ``b`` (B, m): the inner loop of the flexible PCG.
+
+    The loop of ``madipm_tpu.ops.linalg.pcg_lowp``: operator, preconditioner
+    and dot products all in the dtype of ``b``, which the caller scales to
+    unit magnitude; ``rtol`` sits just above that precision's noise floor.
+    The best iterate wins and a non-finite recurrence ends the lane on it.
+
+    Each lane exits on its own condition and keeps its carry bit for bit
+    from then on, so a trip that no lane needs changes nothing.  The host
+    therefore reads the exit flag only every ``PCG_LOWP_READ_EVERY`` trips
+    (before trips 0, 4, ...): at most two reads for the inner budget of 8,
+    where one read per trip would sync the inner loop of every outer trip.
+    """
+    x = solve_fn(b)
+    r = b - matvec_fn(x)
+    z = solve_fn(r)
+    tol = rtol * torch.clamp(_amax(b), min=1.0)
+    i = torch.zeros(b.shape[:-1] + (1,), dtype=torch.int32, device=b.device)
+    p, rz = z, _dot(r, z)
+    best_x, best_rn = x, _amax(r)
+    for trip in range(max_iters):
+        go = (i < max_iters) & (_amax(r) > tol) & (best_rn > tol)
+        if trip % PCG_LOWP_READ_EVERY == 0 and not sync.any_true(go):
+            break
+        Ap = matvec_fn(p)
+        pAp = _dot(p, Ap)
+        alpha = rz / torch.where(pAp != 0, pAp, 1.0)
+        x_n = x + alpha * p
+        r_n = r - alpha * Ap
+        z_n = solve_fn(r_n)
+        rz_n = _dot(r_n, z_n)
+        beta = rz_n / torch.where(rz != 0, rz, 1.0)
+        p_n = z_n + beta * p
+        rn = _amax(r_n)
+        better = (rn < best_rn) & torch.all(torch.isfinite(x_n), dim=-1, keepdim=True)
+        bx_n = torch.where(better, x_n, best_x)
+        brn_n = torch.where(better, rn, best_rn)
+        bad = ~torch.all(torch.isfinite(r_n), dim=-1, keepdim=True)
+        x_n = torch.where(bad, bx_n, x_n)
+        r_n = torch.where(bad, 0.0, r_n)
+        i = torch.where(go, i + 1, i)
+        x = torch.where(go, x_n, x)
+        r = torch.where(go, r_n, r)
+        p = torch.where(go, p_n, p)
+        rz = torch.where(go, rz_n, rz)
+        best_x = torch.where(go, bx_n, best_x)
+        best_rn = torch.where(go, brn_n, best_rn)
+    return best_x
+
+
+def pcg_flex(precond_fn, matvec_fn, rhs: torch.Tensor, max_iters: int, rtol=1e-14):
+    """Flexible PCG in fp64 with a variable (inner-iterative)
+    preconditioner, one system per lane of ``rhs`` (B, m).
+
+    The loop of ``madipm_tpu.ops.linalg.pcg_flex``: ``matvec_fn`` applies
+    the exact fp64 operator, ``precond_fn`` may be an inner low-precision
+    CG (:func:`pcg_lowp`) whose output varies between applications, so
+    beta is Polak-Ribiere, z_{k+1}'(r_{k+1} - r_k) / (z_k' r_k).  Lanes exit
+    as in :func:`pcg` (one flag read per trip); the best iterate wins.
+    """
+    tol = rtol * torch.clamp(_amax(rhs), min=1.0)
+    x = precond_fn(rhs).to(rhs.dtype)
+    r = rhs - matvec_fn(x)
+    z = precond_fn(r).to(rhs.dtype)
+    i = torch.zeros_like(tol, dtype=torch.int32)
+    p, rz = z, _dot(r, z)
+    best_x, best_rn = x, _amax(r)
+    while True:
+        go = (i < max_iters) & (_amax(r) > tol) & (best_rn > tol)
+        if not sync.any_true(go):
+            break
+        Ap = matvec_fn(p)
+        pAp = _dot(p, Ap)
+        alpha = rz / torch.where(pAp != 0, pAp, 1.0)
+        x_n = x + alpha * p
+        r_n = r - alpha * Ap
+        z_n = precond_fn(r_n).to(rhs.dtype)
+        rz_n = _dot(r_n, z_n)
+        beta = _dot(z_n, r_n - r) / torch.where(rz != 0, rz, 1.0)
+        p_n = z_n + beta * p
+        rn = _amax(r_n)
+        better = (rn < best_rn) & torch.all(torch.isfinite(x_n), dim=-1, keepdim=True)
+        bx_n = torch.where(better, x_n, best_x)
+        brn_n = torch.where(better, rn, best_rn)
+        bad = ~torch.all(torch.isfinite(r_n), dim=-1, keepdim=True)
+        x_n = torch.where(bad, bx_n, x_n)
+        r_n = torch.where(bad, 0.0, r_n)
+        i = torch.where(go, i + 1, i)
+        x = torch.where(go, x_n, x)
+        r = torch.where(go, r_n, r)
+        p = torch.where(go, p_n, p)
+        rz = torch.where(go, rz_n, rz)
+        best_x = torch.where(go, bx_n, best_x)
+        best_rn = torch.where(go, brn_n, best_rn)
     return best_x

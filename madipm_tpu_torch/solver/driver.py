@@ -1,23 +1,34 @@
 """Mehrotra predictor-corrector driver.
 
-Port of the fused path of ``madipm_tpu/solver/driver.py``: configuration,
-scaling, initialization, termination, the three phases of one iteration
-and ``solve_device``.  Where the JAX package traces one XLA program and
-``vmap``s it over instances, this driver runs a host loop over a batch of
-lanes.  Every data-dependent exit is a lane mask; the host reads one flag
-per exit test (``utils/sync.py``) and a lane that has left a loop keeps
-its state bit for bit, so each lane follows the trajectory that
+Port of ``madipm_tpu/solver/driver.py``: configuration, scaling,
+initialization, termination, the three phases of one iteration and the
+four drivers.  Where the JAX package traces one XLA program and ``vmap``s
+it over instances, this driver runs a host loop over a batch of lanes.
+Every data-dependent exit is a lane mask; the host reads one flag per exit
+test (``utils/sync.py``) and a lane that has left a loop keeps its state
+bit for bit, so each lane follows the trajectory that
 ``vmap(solve_device)`` gives it.  LPs and convex QPs run through every
 dense KKT system (NORMAL, CONDENSED, AUGMENTED, SCALED_AUGMENTED), with
-Gondzio corrections on request.  The logged, timed and chunked drivers
-are ROADMAP item A10.
+Gondzio corrections on request.
+
+- :func:`solve_device`: the fused loop nest (:func:`run_loop`), the
+  benchmark path and the one ``checkpoint.resume`` continues;
+- :func:`solve_device_chunked`: the same nest in chunks, with a wall-clock
+  guard between chunks (a finite ``max_wall_time``);
+- :func:`solve_logged`: the per-iteration table, without the A x / A' y
+  recurrence;
+- :func:`solve_timed`: the eval / linear-solve / step split of each
+  iteration, each phase ended by a sync.
+The last three solve one instance (a one-lane batch), as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Tuple
+import time
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -84,20 +95,18 @@ def _torch_dtype(d) -> torch.dtype:
 
 
 def make_config(opt: IPMOptions, is_qp: bool, dtype: torch.dtype = torch.float64) -> SolverConfig:
-    """Resolve the options into a SolverConfig; options whose code path is
-    not ported raise NotImplementedError naming their ROADMAP item."""
+    """Resolve the options into a SolverConfig; the Ozaki matvecs, whose
+    code path is not ported, raise NotImplementedError naming ROADMAP A12."""
     kind = opt.resolved_kkt(is_qp)
     if kind == KKTSystem.NORMAL and is_qp:
         raise ValueError(
             "NormalKKT supports only linear programs; use kkt_system=AUGMENTED for QPs."
         )
-    for name, unported in (
-        ("pcg_flex", opt.pcg_flex),
-        ("precond_refine", opt.precond_refine),
-        ("factor_precision", opt.factor_precision is not None),
-    ):
-        if unported:
-            raise NotImplementedError(f"option {name} is ROADMAP item A7b")
+    if opt.factor_precision is not None and opt.factor_precision not in kkt_ops.MATMUL_PRECISION:
+        raise ValueError(
+            f"factor_precision must be None or one of {sorted(kkt_ops.MATMUL_PRECISION)}, "
+            f"got {opt.factor_precision!r}"
+        )
     if opt.fp64_matvec in ("ozaki", "ozaki_i8"):
         raise NotImplementedError(
             f"fp64_matvec={opt.fp64_matvec!r} is ROADMAP item A12; fp64 matvecs are native here"
@@ -124,6 +133,9 @@ def make_config(opt: IPMOptions, is_qp: bool, dtype: torch.dtype = torch.float64
         refinement_steps=refinement,
         max_factor_trials=3,
         use_pallas=bool(opt.use_pallas),  # None (auto) = off
+        use_flex_pcg=opt.pcg_flex,
+        factor_precision=opt.factor_precision,
+        precond_refine=opt.precond_refine,
     )
     return SolverConfig(
         kkt=kcfg,
@@ -441,12 +453,13 @@ def _lane_all_finite(v):
 
 
 def _direction_phase(cfg: SolverConfig, prob: TorchQP, state: IPMState, factors, ax, aty,
-                     active=None, return_products=False):
+                     active=None, rhs_aff=None, return_products=False):
     """Predictor + Mehrotra corrector (+ Gondzio) solves; returns the
     accepted direction and the new barrier parameter (and its (A dx, A' dy)
     with ``return_products``).
     A finished lane (``active`` False) solves with a zero rhs, so its PCG
-    exits on the first test."""
+    exits on the first test.  ``rhs_aff``, the predictor rhs, may come from
+    the caller (the timed driver builds it in its eval phase)."""
     prob = dataclasses.replace(prob, lb=state.lb, ub=state.ub)
     x, y, zl, zu = state.x, state.y, state.zl, state.zu
 
@@ -461,7 +474,8 @@ def _direction_phase(cfg: SolverConfig, prob: TorchQP, state: IPMState, factors,
         rtol_pred = torch.clamp(0.05 * state.mu, 1e-11, 1e-8)
 
     # Predictor (affine scaling); a reduced PCG budget.
-    rhs_aff = K.predictor_rhs(prob, x, y, zl, zu, ax, aty)
+    if rhs_aff is None:
+        rhs_aff = K.predictor_rhs(prob, x, y, zl, zu, ax, aty)
     pred_budget = (
         cfg.predictor_pcg_budget
         if cfg.predictor_pcg_budget is not None
@@ -679,31 +693,163 @@ def _loop_body(cfg: SolverConfig, prob: TorchQP, state: IPMState, ax=None, aty=N
     return new.where(active, state)
 
 
-def solve_device(cfg: SolverConfig, prob: TorchQP) -> Tuple[TorchQP, ScaleInfo, IPMState]:
-    """Solve every lane of ``prob``; returns (scaled problem, scaling, state).
-
-    The loop nest of the JAX ``solve_device``: each outer trip refreshes the
-    certificate (and resyncs A x / A' y exactly) on the lanes still
-    running, then runs up to CERT_PERIOD iterations.  A lane that stops
-    keeps its state; the loops end when no lane is REGULAR.
-    """
-    prob_s, scale, state = initialize(cfg, prob)
-    while True:
-        running = state.status == _REGULAR
-        if not sync.any_true(running):
+def _cert_trip(cfg: SolverConfig, prob: TorchQP, state: IPMState, trips: int) -> IPMState:
+    """One trip of the outer loop: refresh the certificate (and resync
+    A x / A' y exactly) on the lanes still running, then run up to
+    ``trips`` iterations."""
+    running = state.status == _REGULAR
+    state = _refresh_cert(cfg, prob, state).where(running, state)
+    ax = aty = None
+    if cfg.product_recurrence:
+        ax = prob.matvec(state.x)
+        aty = prob.rmatvec(state.y)
+    for _ in range(trips):
+        go = state.status == _REGULAR
+        if not sync.any_true(go):
             break
-        state = _refresh_cert(cfg, prob_s, state).where(running, state)
-        ax = aty = None
         if cfg.product_recurrence:
-            ax = prob_s.matvec(state.x)
-            aty = prob_s.rmatvec(state.y)
-        for _ in range(CERT_PERIOD):
-            go = state.status == _REGULAR
-            if not sync.any_true(go):
-                break
-            if cfg.product_recurrence:
-                new, ax, aty = _loop_body(cfg, prob_s, state, ax, aty)
-            else:
-                new = _loop_body(cfg, prob_s, state)
-            state = new.where(go, state)
+            new, ax, aty = _loop_body(cfg, prob, state, ax, aty)
+        else:
+            new = _loop_body(cfg, prob, state)
+        state = new.where(go, state)
+    return state
+
+
+def run_loop(cfg: SolverConfig, prob: TorchQP, state: IPMState) -> IPMState:
+    """The loop nest of the JAX ``solve_device`` from a given state of the
+    scaled problem ``prob``: each outer trip refreshes the certificate (and
+    resyncs A x / A' y exactly) on the lanes still running, then runs up to
+    CERT_PERIOD iterations.  A lane that stops keeps its state; the loops
+    end when no lane is REGULAR."""
+    while sync.any_true(state.status == _REGULAR):
+        state = _cert_trip(cfg, prob, state, CERT_PERIOD)
+    return state
+
+
+def solve_device(cfg: SolverConfig, prob: TorchQP) -> Tuple[TorchQP, ScaleInfo, IPMState]:
+    """Solve every lane of ``prob``; returns (scaled problem, scaling, state)."""
+    prob_s, scale, state = initialize(cfg, prob)
+    return prob_s, scale, run_loop(cfg, prob_s, state)
+
+
+def solve_device_chunked(cfg: SolverConfig, prob: TorchQP, max_wall_time: float,
+                         chunk: int = 25) -> Tuple[TorchQP, ScaleInfo, IPMState]:
+    """The fused solve with a wall-clock guard: chunks of up to ``chunk``
+    iterations (the certificate refreshed, and with the recurrence the
+    exact A x / A' y pair taken, once per chunk), the clock read between
+    chunks.  When the budget is spent, one last termination check (the
+    last iterate may already meet a tolerance), then
+    MAXIMUM_WALLTIME_EXCEEDED on the lanes still REGULAR."""
+    t0 = time.time()
+    prob_s, scale, state = initialize(cfg, prob)
+    while sync.any_true(state.status == _REGULAR):
+        if time.time() - t0 >= max_wall_time:
+            state = update_termination(cfg, prob_s, state)
+            status = torch.where(state.status == _REGULAR, int(Status.MAXIMUM_WALLTIME_EXCEEDED),
+                                 state.status)
+            return prob_s, scale, state.replace(status=status.to(torch.int32))
+        state = _cert_trip(cfg, prob_s, state, chunk)
     return prob_s, scale, state
+
+
+#: the header of the per-iteration table, printed every 10 iterations
+LOG_HEADER = "iter    objective    inf_pr   inf_du lg(mu)  ||d||  lg(rg) alpha_du alpha_pr"
+
+
+def _log_row(state: IPMState, scale: ScaleInfo) -> Tuple[int, int, str]:
+    """(k, status, table row) of lane 0, read from the device in one copy."""
+    vals = sync.to_host(torch.cat([
+        t[:1, :1].to(torch.float64) for t in (
+            state.k, state.status, state.obj_val, scale.obj_scale, state.inf_pr, state.inf_du,
+            state.mu, torch.amax(torch.abs(state.dx), dim=-1, keepdim=True), state.del_w,
+            state.alpha_d, state.alpha_p,
+        )
+    ], dim=-1))[0]
+    k, status, obj, osc, inf_pr, inf_du, mu, dmax, dw, alpha_d, alpha_p = vals.tolist()
+    k, status = int(k), int(status)
+    dnorm = dmax if k > 0 else 0.0
+    lg_rg = "   - " if dw == 0 else f"{math.log10(dw):5.1f}"
+    row = (
+        f"{k:4d}  {obj / osc: 10.7e} {inf_pr:6.2e} "
+        f"{inf_du:6.2e} {math.log10(max(mu, 1e-300)):5.1f} "
+        f"{dnorm:6.2e} {lg_rg} {alpha_d:6.2e} {alpha_p:6.2e}"
+    )
+    return k, status, row
+
+
+def solve_logged(cfg: SolverConfig, prob: TorchQP, print_fn: Callable[[str], None] = print,
+                 max_wall_time: float = 1e6) -> Tuple[TorchQP, ScaleInfo, IPMState]:
+    """The JAX ``solve_logged``: a host loop of ``update_termination`` then
+    ``iteration``, the products taken anew each trip (no recurrence), the
+    certificate refreshed every CERT_PERIOD trips, one table row per
+    iteration (lane 0) with the header every 10 rows, and the wall-clock
+    guard before each iteration."""
+    t0 = time.time()
+    prob_s, scale, state = initialize(cfg, prob)
+    trip = 0
+    while True:
+        if trip % CERT_PERIOD == 0:
+            state = _refresh_cert(cfg, prob_s, state)
+        trip += 1
+        state = update_termination(cfg, prob_s, state)
+        k, status, row = _log_row(state, scale)
+        if k % 10 == 0:
+            print_fn(LOG_HEADER)
+        print_fn(row)
+        if status != _REGULAR:
+            break
+        if time.time() - t0 >= max_wall_time:
+            state = state.replace(status=torch.full_like(state.status, int(Status.MAXIMUM_WALLTIME_EXCEEDED)))
+            break
+        state = iteration(cfg, prob_s, state)
+    return prob_s, scale, state
+
+
+def _phase_end(t: torch.Tensor) -> int:
+    """End a timed phase: wait for the device (on CUDA) and read lane 0 of
+    ``t``, a status (B, 1)."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    return int(sync.to_host(t[:1, 0])[0])
+
+
+def solve_timed(cfg: SolverConfig, prob: TorchQP,
+                max_wall_time: float = 1e6) -> Tuple[TorchQP, ScaleInfo, IPMState, dict]:
+    """The JAX ``solve_timed``: the loop of :func:`solve_logged` split in
+    three phases with wall timers, each phase ended by a sync.  Returns
+    ``(prob_s, scale, state, timers)``; ``timers`` holds
+    ``linear_solver_time`` (the factor and the direction solves),
+    ``eval_time`` (the A x / A' y pair, the predictor rhs and the
+    termination check) and ``step_time`` (step rule and update), in
+    seconds.  The initialization's factor and solves are not counted."""
+    t0 = time.time()
+    prob_s, scale, state = initialize(cfg, prob)
+    _phase_end(state.status)
+    timers = {"linear_solver_time": 0.0, "eval_time": 0.0, "step_time": 0.0}
+    trip = 0
+    while True:
+        t1 = time.time()
+        if trip % CERT_PERIOD == 0:
+            state = _refresh_cert(cfg, prob_s, state)
+        trip += 1
+        p = dataclasses.replace(prob_s, lb=state.lb, ub=state.ub)
+        ax, aty = p.matvec(state.x), p.rmatvec(state.y)
+        rhs_aff = K.predictor_rhs(p, state.x, state.y, state.zl, state.zu, ax, aty)
+        state = update_termination(cfg, prob_s, state, ax, aty)
+        status = _phase_end(state.status)
+        timers["eval_time"] += time.time() - t1
+        if status != _REGULAR:
+            break
+        if time.time() - t0 >= max_wall_time:
+            state = state.replace(status=torch.full_like(state.status, int(Status.MAXIMUM_WALLTIME_EXCEEDED)))
+            break
+        t1 = time.time()
+        factors, del_w, del_c, reg_p, reg_d = _factor_phase(cfg, prob_s, state)
+        out = _direction_phase(cfg, prob_s, state, factors, ax, aty, rhs_aff=rhs_aff)
+        _phase_end(state.status)
+        timers["linear_solver_time"] += time.time() - t1
+        t1 = time.time()
+        state = _step_phase(cfg, prob_s, state, *out, del_w, del_c, reg_p, reg_d)
+        _phase_end(state.status)
+        timers["step_time"] += time.time() - t1
+    return prob_s, scale, state, timers

@@ -3,10 +3,9 @@
 Field-for-field copy of ``madipm_tpu/utils/options.py`` (the JAX package
 cannot be imported without jax).  The history and measurements behind
 each default live there; what differs in this package is noted on the
-field.  Options whose code path is not ported yet (``pcg_flex``,
-``precond_refine``, ``factor_precision``, the Ozaki matvecs) are accepted
+field.  The Ozaki matvecs, whose code path is not ported, are accepted
 here and rejected with ``NotImplementedError`` by
-``solver.driver.make_config``, naming the ROADMAP item that ports them.
+``solver.driver.make_config``, naming ROADMAP item A12.
 """
 
 from __future__ import annotations
@@ -181,17 +180,26 @@ class IPMOptions:
 
     #: dtype of the factorization, e.g. "float32"; None = the solve dtype
     factor_dtype: Optional[str] = None
-    #: second-order preconditioner (ROADMAP A7b)
+    #: second-order preconditioner of the NORMAL fp32-factor path: one
+    #: correction per preconditioner application against the unshifted
+    #: Jacobi-scaled S (an (m, m) buffer per lane more)
     precond_refine: bool = False
-    #: matmul precision of the factor work (ROADMAP A7b; float32 matmuls run
-    #: in full float32 here, TF32 is switched off by the package)
+    #: float32 matmul precision of the factor attempt and the
+    #: preconditioner applications when the factor runs below the solve
+    #: dtype, on CUDA: "default" -> bf16 ("medium"), "high" -> TF32,
+    #: "highest" -> full fp32 (``torch.set_float32_matmul_precision``,
+    #: restored after each use); None leaves float32 products in float32
+    #: (the package switches TF32 off).  The chol_inv kernel's fp32
+    #: products are its own FMAs and are not affected; on the CPU nothing
+    #: changes, as on XLA's CPU backend.
     factor_precision: Optional[str] = None
     #: True: a CHOLESKY factor of the NORMAL or CONDENSED system runs
     #: through the factor-only kernel of ops/chol_inv.py, not torch.linalg
     #: (None = False).  A CHOLESKY_INV factor runs through its kernel on
     #: CUDA whatever this says.
     use_pallas: Optional[bool] = None
-    #: flexible PCG with an inner low-precision CG (ROADMAP A7b)
+    #: flexible PCG: the fp64 PCG preconditioned by an inner CG of
+    #: MIXED_INNER_ITERS trips in the factor precision (fp32 factor only)
     pcg_flex: bool = False
     #: fp64 matvecs: "auto" and "emulated" mean native fp64 here;
     #: "ozaki" and "ozaki_i8" are ROADMAP item A12

@@ -27,7 +27,7 @@ class IPMStats:
     init_time: float = 0.0
     solver_time: float = 0.0
     #: wall time in factorizations + solves; only the timed driver
-    #: measures it (ROADMAP A10), so it stays None here
+    #: (``solve(timed=True)``) measures it, None otherwise
     linear_solver_time: Optional[float] = None
     dual_objective: Optional[float] = None
 

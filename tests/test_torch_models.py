@@ -197,20 +197,39 @@ def test_generators_match():
         assert a.name == b.name
 
 
-@pytest.mark.parametrize("kw, exc, match", [
-    (dict(fp64_matvec="ozaki"), NotImplementedError, "A12"),
-    (dict(fp64_matvec="ozaki_i8"), NotImplementedError, "A12"),
-    (dict(fp64_matvec="nope"), ValueError, "fp64_matvec"),
-    (dict(factor_precision="high"), NotImplementedError, "A7b"),
-    (dict(barrier_update="monotone"), ValueError, "barrier_update"),
-    (dict(pcg_flex=True), NotImplementedError, "A7b"),
-    (dict(precond_refine=True), NotImplementedError, "A7b"),
-    (dict(factor_dtype="float16"), ValueError, "factor_dtype"),
-    (dict(factor_dtype="bfloat16"), ValueError, "factor_dtype"),
-])
+#: (options, exception or None, match or the KKTConfig field that must take
+#: the option); the ids are the ones these cases had while the three A7b
+#: options were refused
+MAKE_CONFIG_CASES = [
+    (dict(fp64_matvec="ozaki"), NotImplementedError, "A12", "kw0-NotImplementedError-A12"),
+    (dict(fp64_matvec="ozaki_i8"), NotImplementedError, "A12", "kw1-NotImplementedError-A12"),
+    (dict(fp64_matvec="nope"), ValueError, "fp64_matvec", "kw2-ValueError-fp64_matvec"),
+    (dict(factor_precision="high"), None, "factor_precision", "kw3-NotImplementedError-A7b"),
+    (dict(barrier_update="monotone"), ValueError, "barrier_update", "kw4-ValueError-barrier_update"),
+    (dict(pcg_flex=True), None, "use_flex_pcg", "kw5-NotImplementedError-A7b"),
+    (dict(precond_refine=True), None, "precond_refine", "kw6-NotImplementedError-A7b"),
+    (dict(factor_dtype="float16"), ValueError, "factor_dtype", "kw7-ValueError-factor_dtype"),
+    (dict(factor_dtype="bfloat16"), ValueError, "factor_dtype", "kw8-ValueError-factor_dtype"),
+    (dict(factor_precision="fast"), ValueError, "factor_precision", "kw9-ValueError-factor_precision"),
+]
+
+
+@pytest.mark.parametrize("kw, exc, match", [c[:3] for c in MAKE_CONFIG_CASES],
+                         ids=[c[3] for c in MAKE_CONFIG_CASES])
 def test_make_config_rejects_unported(kw, exc, match):
-    with pytest.raises(exc, match=match):
-        driver.make_config(topt.IPMOptions(**kw), is_qp=False)
+    """The Ozaki matvecs (A12) and invalid values are refused; the A7b
+    options are accepted and passed into the KKTConfig as the JAX
+    package's make_config passes them."""
+    if exc is not None:
+        with pytest.raises(exc, match=match):
+            driver.make_config(topt.IPMOptions(**kw), is_qp=False)
+        return
+    from madipm_tpu.solver import driver as jdriver
+
+    (value,) = kw.values()
+    cfg = driver.make_config(topt.IPMOptions(**kw), is_qp=False)
+    jcfg = jdriver.make_config(jopt.IPMOptions(**kw), is_qp=False)
+    assert getattr(cfg.kkt, match) == getattr(jcfg.kkt, match) == value
 
 
 def test_make_config_rejects_normal_for_qp():

@@ -74,15 +74,24 @@ def test_madipm_matches_jax(config, inst):
     assert np.max(np.abs(ts.constraints - d["lcon"])) <= 1e-6 * max(1.0, np.max(np.abs(d["lcon"])))
 
 
-def test_unported_drivers_raise():
+def test_unported_drivers_raise(capsys):
+    """The three calls that raised NotImplementedError before the logged
+    and chunked drivers and pcg_flex were ported now solve, each to the
+    fused driver's objective (tests/test_torch_drivers.py and
+    tests/test_torch_flex.py hold them against the JAX package)."""
     d = INSTANCES["lp0"]
-    solver = mtt.MPCSolver(mtt.from_dense(**d), device="cpu", print_level=mtt.PrintLevel.ERROR)
-    with pytest.raises(NotImplementedError, match="A10"):
-        solver.solve(logged=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        mtt.madipm(mtt.from_dense(**d), device="cpu", max_wall_time=10.0)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        mtt.madipm(mtt.from_dense(**d), device="cpu", pcg_flex=True)
+    kw = dict(_opts(mtt, "fp64"), device="cpu", rethrow_error=True)
+    ref = mtt.madipm(mtt.from_dense(**d), **kw)
+    assert "inf_pr" not in capsys.readouterr().out
+    solver = mtt.MPCSolver(mtt.from_dense(**d), **dict(kw, print_level=mtt.PrintLevel.INFO))
+    runs = [
+        solver.solve(logged=True),
+        mtt.madipm(mtt.from_dense(**d), max_wall_time=10.0, **kw),
+        mtt.madipm(mtt.from_dense(**d), pcg_flex=True, **kw),
+    ]
+    assert "inf_pr" in capsys.readouterr().out  # the logged table
+    for st in runs:
+        assert st.success and abs(st.objective - ref.objective) <= 1e-8 * max(1.0, abs(ref.objective))
 
 
 def test_no_device_and_no_gpu_raises(monkeypatch):
