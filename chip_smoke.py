@@ -57,7 +57,21 @@ Runs, in order, and fails (non-zero exit) at the first phase that fails:
 11. the solver options ``pcg_flex``, ``precond_refine`` and
    ``factor_precision`` on the LP bench suite of phase 4, each run beside
    a plain one: 8/8 with the first two, the iterates of "highest" equal
-   to the plain run's bit for bit, "high" and "default" reported.
+   to the plain run's bit for bit, "high" and "default" reported;
+12. the mesh path (``parallel/``) on a one-rank NCCL group that
+   ``init_distributed`` starts: the LP bench
+   instance through ``MPCSolver(mesh=make_mesh(1, ("cols",)))`` with the
+   accelerator options and in fp64 (the normal matrix reduce-scattered
+   into row strips, the diagonal block through ``chol_inv`` at (1, 1024)),
+   the K1 QP bench instance likewise (the distributed K1 factor), each
+   against its mesh-free solve (the same status, iterations equal or +-1,
+   objective to 1e-8 relative); the four known-optimum LPs of phase 5
+   through the mesh to rel-KKT <= 1e-8; the LP suite of phase 4 through
+   ``madipm_batch(mesh=make_mesh(1, ("batch",)))``, 8/8 with each lane's
+   iterations and objective those of phase 4; ``chol_inv`` at (1, 1024) in
+   fp32 and fp64 against its plain version; and the functions of
+   ``tools/dryrun_multichip.py`` (a (batch, cols) MPC step, a
+   distributed-factor LP and a distributed K1 QP).
 
 Each main path is driven with the launch counters set to 0 just before it
 and read just after.  The last two lines are the kernel table and
@@ -88,6 +102,7 @@ from madipm_tpu_torch.models.generators import (
 )
 from madipm_tpu_torch.ops import block_chol, chol_inv, linalg
 from madipm_tpu_torch.parallel.batch import bucket_pad_sparse
+from madipm_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from madipm_tpu_torch.solver import driver
 from madipm_tpu_torch.utils import checkpoint, sync
 
@@ -811,6 +826,105 @@ def phase_options(device, models) -> dict:
     return runs["pcg_flex"]
 
 
+#: phase 12's fp64 configuration: the default CHOLESKY system in fp64 (the
+#: distributed factor takes chol_inv for every diagonal block)
+FP64_OPTIONS = dict(
+    tol=1e-8,
+    max_iter=300,
+    regularization=mtt.FixedRegularization(1e-8, -1e-8),
+    print_level=mtt.PrintLevel.ERROR,
+)
+
+
+def mesh_pair(label, qp, mesh, options) -> dict:
+    """``qp`` through the mesh (launch counter set to 0 just before it,
+    read just after) and without it; the same status, iterations equal or
+    +-1 (the difference logged), objectives to 1e-8 relative."""
+    plain = mtt.MPCSolver(qp, device="cuda", rethrow_error=True, **options).solve()
+    chol_inv.launches = 0
+    sync.count = 0
+    st = mtt.MPCSolver(qp, mesh=mesh, rethrow_error=True, **options).solve()
+    launches, syncs = chol_inv.launches, sync.count
+    gap = abs(st.objective - plain.objective) / max(1.0, abs(plain.objective))
+    log(f"{label}: mesh {st.status.name} in {st.iter} iterations, {st.solver_time:.4f} s, "
+        f"{syncs / max(1, st.iter):.2f} syncs per iteration, chol_inv launches {launches}; "
+        f"mesh-free {plain.status.name} in {plain.iter}, {plain.solver_time:.4f} s; objectives "
+        f"{gap:.3e} apart")
+    if st.iter != plain.iter:
+        log(f"{label}: the iteration counts differ by {st.iter - plain.iter}: the distributed "
+            f"factor forms the panel block as D W' and orders the K1 sums differently")
+    check(st.status == plain.status and st.success and abs(st.iter - plain.iter) <= 1 and gap <= 1e-8,
+          f"{label}: the mesh solve disagrees with the mesh-free one")
+    check(launches > 0, f"{label}: the mesh solve never launched the chol_inv kernel")
+    check(np.all(np.isfinite(st.solution)) and st.solution.shape == (qp.nvar,),
+          f"{label}: non-finite or misshapen solution")
+    return dict(stats=st, launches=launches)
+
+
+def phase_mesh(lp_run) -> dict:
+    """Phase 12: the mesh path on a one-rank NCCL group (the card's machine
+    has one GPU, and NCCL takes one rank per GPU).  Returns the kernel rows
+    and launches of its runs."""
+    import torch.distributed as dist
+
+    from madipm_tpu_torch.tools import dryrun_multichip
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    store = os.path.join(OUT_DIR, f"nccl_store_{os.getpid()}")
+    if os.path.exists(store):
+        os.remove(store)
+    init_distributed(f"file://{store}", num_processes=1, process_id=0)
+    out = {}
+    try:
+        check(dist.get_backend() == "nccl", f"the process group is {dist.get_backend()}, not nccl")
+        # NCCL sets its communicator up at the first collective: not in a timed solve
+        dist.all_reduce(torch.zeros(1, device="cuda"))
+        torch.cuda.synchronize()
+        cols = make_mesh(1, ("cols",))
+        check(cols.device_type == "cuda", "the mesh is not on the CUDA device")
+        lp = make_suite(k=1, n=2048, m=1024, density=0.15)[0]
+        out["lp32"] = mesh_pair("mesh LP (accelerator options)", lp, cols, BENCH_OPTIONS)
+        out["lp64"] = mesh_pair("mesh LP (fp64)", lp, cols, FP64_OPTIONS)
+        qp = make_qp_suite(k=1, m=512, n=1024, density=0.15)[0]
+        out["k1"] = mesh_pair("mesh K1 QP", qp, cols, QP_OPTIONS)
+        worst = 0.0
+        for deg in (False, True):
+            for seed in (1, 2):
+                model, info = known_optimum_lp(1024, 2048, seed=seed + 1024, degenerate=deg)
+                kkt, _ = certify(model, info, "cuda", f"mesh {model.name} seed {seed + 1024}",
+                                 mesh=cols, **CERT_OPTIONS)
+                worst = max(worst, kkt)
+        log(f"mesh certificate: 4/4 LPs at rel-KKT <= 1e-8 (worst {worst:.3e})")
+        batch = make_mesh(1, ("batch",))
+        chol_inv.launches = 0
+        stats = mtt.madipm_batch(lp_run["models"], mesh=batch, **BENCH_OPTIONS)
+        out["batch_launches"] = chol_inv.launches
+        same = [a.iter == b.iter and a.objective == b.objective for a, b in zip(stats, lp_run["stats"])]
+        gaps = [abs(a.objective - b.objective) / max(1.0, abs(b.objective))
+                for a, b in zip(stats, lp_run["stats"])]
+        log(f"mesh madipm_batch: {sum(s.success for s in stats)}/{len(stats)} solved, iterations "
+            f"{[s.iter for s in stats]}, wall {stats[0].solver_time:.4f} s, chol_inv launches "
+            f"{out['batch_launches']}; lanes equal to phase 4's: {sum(same)}/{len(same)} "
+            f"(largest objective gap {max(gaps):.3e})")
+        check(all(s.success for s in stats) and all(a.iter == b.iter for a, b in zip(stats, lp_run["stats"]))
+              and max(gaps) <= 1e-12, "the mesh batch disagrees with the mesh-free batch")
+        check(out["batch_launches"] > 0, "the mesh batch never launched the chol_inv kernel")
+        dryrun_multichip.run(log=log)
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    n = 1024
+    for dtype in (torch.float32, torch.float64):
+        S = random_spd(1, n, dtype, gen)
+        out["row", dtype] = check_kernel(
+            "chol_inv", S, chol_inv.chol_inv, block_chol.chol_inv, library_chol_inv,
+            flops=2 * float(n) ** 3 / 3, nbytes=3 * n * n * S.element_size(), plain_reps=3)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
@@ -843,6 +957,7 @@ def main() -> int:
     del transport
     phase_drivers("cuda")
     flex_run = phase_options("cuda", lp_run["models"])
+    mesh = phase_mesh(lp_run)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     for n in sizes:  # the structured suite's factors, the largest kept for the table
@@ -872,6 +987,22 @@ def main() -> int:
              replaces="madipm_tpu/ops/pallas_chol.py:225", launches=structured_launches, **structured_row),
         dict(name="chol_inv", route="cuda", source=source, path="LP main path with pcg_flex",
              replaces="madipm_tpu/ops/pallas_chol.py:239", launches=flex_run["chol_inv"],
+             **rows["chol_inv", torch.float32, 1024]),
+        dict(name="chol_inv", route="cuda", source=source,
+             path="mesh LP bench instance (one-rank NCCL, distributed NORMAL factor, accelerator options)",
+             replaces="madipm_tpu/ops/pallas_chol.py:239", launches=mesh["lp32"]["launches"],
+             **mesh["row", torch.float32]),
+        dict(name="chol_inv", route="cuda", source=source,
+             path="mesh LP bench instance (one-rank NCCL, distributed NORMAL factor, fp64)",
+             replaces="madipm_tpu/ops/pallas_chol.py:239", launches=mesh["lp64"]["launches"],
+             **mesh["row", torch.float64]),
+        dict(name="chol_inv", route="cuda", source=source,
+             path="mesh K1 QP bench instance (one-rank NCCL, distributed K1 factor, fp64)",
+             replaces="madipm_tpu/ops/pallas_chol.py:239", launches=mesh["k1"]["launches"],
+             **mesh["row", torch.float64]),
+        dict(name="chol_inv", route="cuda", source=source,
+             path="LP suite through madipm_batch(mesh=...) (one-rank NCCL)",
+             replaces="madipm_tpu/ops/pallas_chol.py:239", launches=mesh["batch_launches"],
              **rows["chol_inv", torch.float32, 1024]),
     ]
     log(smi)

@@ -8,7 +8,9 @@ ELL route (``sparse=True``, or chosen for a large sparse LP) on NORMAL and
 K1; the file front end ``from_mps`` (MPS/QPS, presolve, Ruiz scaling,
 postsolve) with ``solve_linprog`` and ``solve_qp``; the algebraic
 ``Model``; and, as in the JAX package, the checkpoint functions in
-``utils/checkpoint.py`` and the generators in ``models/generators.py``.
+``utils/checkpoint.py`` and the generators in ``models/generators.py``;
+and the multi-GPU layer in ``parallel/`` on torch.distributed
+(``MPCSolver(mesh=...)``, ``madipm_batch(mesh=...)``).
 ``MPCSolver.solve`` picks the JAX package's driver: the per-iteration
 table at print_level <= INFO, the timed driver, a wall-clock guard for a
 finite ``max_wall_time``, or the fused loop.  The factor

@@ -3,6 +3,7 @@
     QuadraticModel (host) -> slack_form
       -> pad_to_device (one-lane TorchQP) or, on the sparse route,
          pad_sparse_to_device (one-lane SparseTorchQP)
+      -> with a mesh, parallel/schur.shard_columns (this rank's part)
       -> solver.driver: solve_logged (the default at print_level <= INFO),
          solve_timed, solve_device_chunked (a finite max_wall_time) or
          solve_device
@@ -72,20 +73,38 @@ class MPCSolver:
         pad_multiple: int = 128,
         device=None,
         sparse: Optional[bool] = None,
+        mesh=None,
         **options,
     ):
         """``sparse=None`` takes the ELL route of ``models/sparse.py`` by
         :func:`use_sparse`; a sparse QP is solved on K1 (CONDENSED), which
-        is chosen for it when no ``kkt_system`` is given."""
+        is chosen for it when no ``kkt_system`` is given.
+
+        ``mesh`` (a DeviceMesh, ``parallel/mesh.make_mesh``) splits the
+        solve over the ranks of its first axis, every rank calling with the
+        same model: a column-sharded problem (``parallel/schur.py``) and
+        the NORMAL (LP) or CONDENSED (QP) factor in row strips
+        (``parallel/dist_chol.py``); dense route only.  ``pad_multiple`` is
+        raised to 128 times the mesh size, so that every padded dimension
+        divides over it.  The device is the rank's (``mesh_device``)."""
         _ensure_fp32_matmul()
         self.model = model
         self.opt = options.pop("options", None) or load_options(**options)
         self.dtype = dtype
-        self.device = torch.device(device) if device is not None else default_device()
+        self.mesh = mesh
+        if mesh is not None:
+            from .parallel.mesh import mesh_device
+
+            self.device = mesh_device(mesh, device)
+            pad_multiple = max(pad_multiple, 128 * mesh.size())
+        else:
+            self.device = torch.device(device) if device is not None else default_device()
         t0 = time.time()
         self.slack_model = slack_form(model)
         if sparse is None:
             sparse = use_sparse(self.slack_model)
+        if sparse and mesh is not None:
+            raise ValueError("mesh-distributed solves use the dense path")
         if sparse:
             kkt = self.opt.resolved_kkt(self.slack_model.is_qp)
             if self.slack_model.is_qp and kkt != KKTSystem.CONDENSED:
@@ -105,7 +124,16 @@ class MPCSolver:
             self.prob = pad_to_device(
                 self.slack_model, dtype=self.dtype, pad_multiple=pad_multiple, device=self.device
             )
-        self.cfg = driver.make_config(self.opt, is_qp=self.prob.is_qp, dtype=self.dtype)
+        if mesh is not None:
+            from .parallel.schur import shard_columns
+
+            axis = mesh.mesh_dim_names[0]
+            self.cfg = driver.make_config(self.opt, is_qp=self.prob.is_qp, dtype=self.dtype,
+                                          mesh=mesh, dist_axis=axis)
+            self.prob = shard_columns(self.prob, mesh, axis,
+                                      keep_rows=self.cfg.kkt.kind == KKTSystem.CONDENSED)
+        else:
+            self.cfg = driver.make_config(self.opt, is_qp=self.prob.is_qp, dtype=self.dtype)
         #: eval / linear-solve / step seconds of the last ``solve(timed=True)``
         self.timers = None
         self.init_time = time.time() - t0
@@ -147,7 +175,7 @@ class MPCSolver:
                         self.cfg, self.prob, print_fn=logger.info,
                         max_wall_time=self.opt.max_wall_time,
                     )
-                elif self.opt.max_wall_time < 1e6:
+                elif self.opt.max_wall_time < driver.NO_WALL_BUDGET:
                     _, scale, state = driver.solve_device_chunked(
                         self.cfg, self.prob, self.opt.max_wall_time
                     )
@@ -226,8 +254,9 @@ def madipm(model: QuadraticModel, **options) -> IPMStats:
     """Solve an LP or a convex QP with the Mehrotra predictor-corrector
     interior-point method.  ``device`` (default: the first CUDA device;
     without one, ``device="cpu"`` must be given) and ``dtype`` go to
-    :class:`MPCSolver`, and so does ``sparse`` (None: the automatic
-    choice of the ELL route); the rest are IPMOptions.  A maximization model
+    :class:`MPCSolver`, and so do ``sparse`` (None: the automatic
+    choice of the ELL route) and ``mesh`` (a split solve); the rest are
+    IPMOptions.  A maximization model
     (concave Q) is negated on entry and its objective flipped back."""
     if not model.minimize:
         model = QuadraticModel(

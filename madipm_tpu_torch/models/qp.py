@@ -7,7 +7,9 @@ Device half: :class:`TorchQP`, the counterpart of ``DeviceQP``.  It holds
 the padded dense standard-form problem as tensors with a leading batch
 dimension (one lane per instance, where the JAX package used ``vmap``),
 with the same fields and the same masks, so that both packages compute on
-the same padded data.
+the same padded data.  With a column group (``parallel/schur.shard_columns``)
+a TorchQP is one rank's part of a problem split over a mesh axis: its
+products end in the collectives of ``utils/comm.py``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Optional
 import numpy as np
 import scipy.sparse as sp
 import torch
+
+from ..utils import comm
 
 INF = float("inf")
 
@@ -272,6 +276,8 @@ def _round_up(x: int, mult: int) -> int:
 
 #: TorchQP fields that hold masks (bool); every other tensor is floating.
 _MASK_FIELDS = ("row_mask", "col_mask")
+#: TorchQP fields of the column-sharded layout, absent from the numpy form
+_LAYOUT_FIELDS = ("group", "A_rows")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -285,6 +291,13 @@ class TorchQP:
     padded rows are masked out of every reduction.  Instances are
     immutable: bound and scaling updates return a new object
     (``dataclasses.replace``), so the derived masks are cached per object.
+
+    With ``group`` (a process group of P ranks, this rank p) ``A`` is
+    this rank's column block (B, m, n/P), columns [p n/P, (p+1) n/P), ``Q``
+    its row strip (B, n/P, n) and ``A_rows``, when kept, its row block of A
+    (B, m/P, n); every vector stays whole and the same on every rank.  The
+    products then reduce over the group: A x is summed, A' y and Q x are
+    gathered, so their results are replicated too.
     """
 
     c: torch.Tensor
@@ -298,6 +311,10 @@ class TorchQP:
     col_mask: torch.Tensor
     x0: torch.Tensor
     y0: torch.Tensor
+    #: the column group (None: this process holds the whole problem)
+    group: Optional[object] = None
+    #: this rank's row block of A, for the distributed K1 assembly
+    A_rows: Optional[torch.Tensor] = None
 
     @classmethod
     def from_numpy(cls, fields: dict, device=None, dtype=torch.float64) -> "TorchQP":
@@ -307,7 +324,7 @@ class TorchQP:
         kw = {}
         for f in dataclasses.fields(cls):
             v = fields.get(f.name)
-            if v is None:
+            if v is None or f.name in _LAYOUT_FIELDS:
                 kw[f.name] = None
                 continue
             v = np.array(v)  # a writable copy
@@ -346,6 +363,8 @@ class TorchQP:
     @property
     def dense_A(self) -> torch.Tensor:
         """The dense Jacobian (B, m, n), which the AUGMENTED systems need."""
+        if self.group is not None:
+            raise NotImplementedError("a column-sharded problem holds no whole A")
         return self.A
 
     @cached_property
@@ -361,21 +380,41 @@ class TorchQP:
     def has_ub(self) -> torch.Tensor:
         return self.free_mask & torch.isfinite(self.ub)
 
+    def cols(self, v: torch.Tensor) -> torch.Tensor:
+        """This rank's block of an n-vector (the whole vector without a group)."""
+        if self.group is None:
+            return v
+        nb = self.A.shape[-1]
+        p = comm.rank(self.group)
+        return v[..., p * nb:(p + 1) * nb]
+
+    def rows(self, v: torch.Tensor) -> torch.Tensor:
+        """This rank's block of an m-vector, the rows of ``A_rows``."""
+        mb = self.A_rows.shape[-2]
+        p = comm.rank(self.group)
+        return v[..., p * mb:(p + 1) * mb]
+
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """A @ x per lane: (B, n) -> (B, m)."""
-        return torch.bmm(self.A, x.unsqueeze(-1)).squeeze(-1)
+        ax = torch.bmm(self.A, self.cols(x).unsqueeze(-1)).squeeze(-1)
+        return ax if self.group is None else comm.all_sum(ax, self.group)
 
     def rmatvec(self, y: torch.Tensor) -> torch.Tensor:
         """A' @ y per lane: (B, m) -> (B, n)."""
-        return torch.bmm(y.unsqueeze(-2), self.A).squeeze(-2)
+        aty = torch.bmm(y.unsqueeze(-2), self.A).squeeze(-2)
+        return aty if self.group is None else comm.gather_last(aty, self.group)
 
     def row_inf_norm(self) -> torch.Tensor:
         """max_j |A_ij| per row."""
-        return torch.amax(torch.abs(self.A), dim=-1)
+        amax = torch.amax(torch.abs(self.A), dim=-1)
+        return amax if self.group is None else comm.all_max(amax, self.group)
 
     def scale_rows(self, con_scale: torch.Tensor) -> "TorchQP":
         """Copy with the rows of A scaled (b is scaled by the caller)."""
-        return dataclasses.replace(self, A=self.A * con_scale.unsqueeze(-1))
+        A_rows = self.A_rows
+        if A_rows is not None:
+            A_rows = A_rows * self.rows(con_scale).unsqueeze(-1)
+        return dataclasses.replace(self, A=self.A * con_scale.unsqueeze(-1), A_rows=A_rows)
 
     def scale_quad(self, obj_scale: torch.Tensor) -> "TorchQP":
         """Copy with Q scaled by the objective scaling (identity for an LP)."""
@@ -387,33 +426,54 @@ class TorchQP:
         """S = A diag(dinv) A' per lane, in the factor dtype (no
         regularization or pinning; ops/kkt applies those)."""
         Af = self.A.to(factor_dtype)
-        df = dinv.to(factor_dtype)
-        return torch.matmul(Af * df.unsqueeze(-2), Af.mT)
+        df = self.cols(dinv).to(factor_dtype)
+        S = torch.matmul(Af * df.unsqueeze(-2), Af.mT)
+        return S if self.group is None else comm.all_sum(S, self.group)
 
     def live_rows(self) -> torch.Tensor:
         """Rows that touch at least one free column."""
-        A_eff = self.A * self.free_mask.unsqueeze(-2)
-        return self.row_mask & (torch.sum(A_eff * A_eff, dim=-1) > 0)
+        A_eff = self.A * self.cols(self.free_mask).unsqueeze(-2)
+        sq = torch.sum(A_eff * A_eff, dim=-1)
+        if self.group is not None:
+            sq = comm.all_sum(sq, self.group)
+        return self.row_mask & (sq > 0)
 
     def qmatvec(self, x: torch.Tensor) -> torch.Tensor:
         """Q @ x per lane (zeros for an LP)."""
         if self.Q is None:
             return torch.zeros_like(x)
-        return torch.bmm(self.Q, x.unsqueeze(-1)).squeeze(-1)
+        qx = torch.bmm(self.Q, x.unsqueeze(-1)).squeeze(-1)
+        return qx if self.group is None else comm.gather_last(qx, self.group)
 
     def assemble_ata(self, w: torch.Tensor, factor_dtype: torch.dtype) -> torch.Tensor:
         """A' diag(w) A over free columns per lane, in the factor dtype
-        (the K1 condensed assembly; ``w`` (B, m) is the live-row indicator)."""
-        Af = (self.A * self.free_mask.unsqueeze(-2)).to(factor_dtype)
-        Aw = Af * w.to(factor_dtype).unsqueeze(-1)
-        return torch.matmul(Aw.mT, Af)
+        (the K1 condensed assembly; ``w`` (B, m) is the live-row indicator).
+        With a group: a sum over the ranks of their row blocks' products."""
+        if self.group is None:
+            A, wr = self.A, w
+        else:
+            A, wr = self.A_rows, self.rows(w)
+        Af = (A * self.free_mask.unsqueeze(-2)).to(factor_dtype)
+        Aw = Af * wr.to(factor_dtype).unsqueeze(-1)
+        C = torch.matmul(Aw.mT, Af)
+        return C if self.group is None else comm.all_sum(C, self.group)
+
+    def quad_strip(self, factor_dtype: torch.dtype) -> Optional[torch.Tensor]:
+        """Q masked to free rows and columns, in the factor dtype: this
+        rank's row strip with a group, else the whole; None for an LP."""
+        if self.Q is None:
+            return None
+        free = self.free_mask
+        return (self.Q * self.cols(free).unsqueeze(-1) * free.unsqueeze(-2)).to(factor_dtype)
 
     def add_quad(self, C: torch.Tensor, factor_dtype: torch.dtype) -> torch.Tensor:
         """C + Q masked to free rows and columns (C itself for an LP)."""
-        if self.Q is None:
+        Qf = self.quad_strip(factor_dtype)
+        if Qf is None:
             return C
-        free = self.free_mask
-        return C + (self.Q * free.unsqueeze(-2) * free.unsqueeze(-1)).to(factor_dtype)
+        if self.group is not None:
+            Qf = comm.gather_rows(Qf, self.group)
+        return C + Qf
 
 
 def pad_to_device(

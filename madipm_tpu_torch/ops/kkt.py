@@ -24,8 +24,15 @@ Three options apply when the factor runs below the solve precision:
 low-precision CG on the retained matrix ``Smat``), ``precond_refine`` (one
 correction against ``Smat`` per preconditioner application, NORMAL only)
 and ``factor_precision`` (the float32 matmul precision of the factor
-attempt and the preconditioner applications on CUDA).  The distributed
-branches are ROADMAP item A11.
+attempt and the preconditioner applications on CUDA).
+
+With ``KKTConfig.dist_mesh`` the NORMAL and CONDENSED factors are split
+over a mesh axis (``parallel/dist_chol.py``): the matrix is assembled into
+row strips and factored by the panel Cholesky, and the preconditioner is
+its distributed substitution.  The factor tuples are then
+DistNormalFactors and DistCondensedFactors; the solves are those of the
+replicated factors, with neither ``use_flex_pcg`` nor ``precond_refine``
+(there is no whole matrix to keep), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -65,6 +72,10 @@ class KKTConfig:
     #: one correction per preconditioner application against the unshifted
     #: Jacobi-scaled S, z + M^-1 (b - Smat z) (NORMAL only)
     precond_refine: bool = False
+    #: a DeviceMesh that splits the NORMAL / CONDENSED factor over its axis
+    #: ``dist_axis`` (parallel/dist_chol.py); None: one process factors
+    dist_mesh: Optional[object] = None
+    dist_axis: str = "cols"
 
 
 class NormalFactors(NamedTuple):
@@ -90,6 +101,35 @@ class CondensedFactors(NamedTuple):
     #: the Jacobi-scaled C the factor was taken of, shift included (factor
     #: dtype), kept only for use_flex_pcg with a factor below the solve dtype
     Smat: Optional[torch.Tensor] = None
+
+
+class DistNormalFactors(NamedTuple):
+    """NORMAL factors with the Cholesky split in row strips over the mesh
+    axis (``parallel/dist_chol.dist_factor_normal``)."""
+
+    L: torch.Tensor  # this rank's row strip (B, m/P, m) of the factor of the scaled S
+    W: torch.Tensor  # the inverse of its diagonal block (B, m/P, m/P)
+    jac: torch.Tensor  # Jacobi scale (B, m), replicated (factor dtype)
+    dinv: torch.Tensor  # Sigma^-1, fixed and padded columns zeroed (solve dtype)
+    del_c: torch.Tensor  # (B, 1)
+    live: torch.Tensor
+
+
+class DistCondensedFactors(NamedTuple):
+    """K1 factors with the size-n Cholesky split in row strips over the
+    mesh axis (``parallel/dist_chol.dist_factor_condensed``)."""
+
+    L: torch.Tensor  # this rank's row strip (B, n/P, n)
+    W: torch.Tensor  # the inverse of its diagonal block (B, n/P, n/P)
+    jac: torch.Tensor  # Jacobi scale (B, n), replicated (factor dtype)
+    sigma: torch.Tensor
+    gamma: torch.Tensor
+    del_c: torch.Tensor
+    live: torch.Tensor
+
+
+_NORMAL = (NormalFactors, DistNormalFactors)
+_CONDENSED = (CondensedFactors, DistCondensedFactors)
 
 
 class AugmentedFactors(NamedTuple):
@@ -267,6 +307,33 @@ def _jacobi_scaled(cfg: KKTConfig, M: torch.Tensor, rdtype, keep_unshifted=False
     return jac, Mhat, Mraw
 
 
+def _attempt_dist(cfg: KKTConfig, prob: TorchQP, sigma, dc, rdtype):
+    """One factor attempt of the distributed NORMAL or CONDENSED system on
+    the column-sharded ``prob``; (factors, ok (B, 1)), ok replicated."""
+    from ..parallel import dist_chol
+
+    fdt = cfg.factor_dtype
+    shift = PRECOND_SHIFT if cfg.refinement_steps > 0 and fdt != rdtype else 0.0
+    free = prob.free_mask
+    if cfg.kind == KKTSystem.NORMAL:
+        # dinv = 0 on fixed and padded columns masks them out of A D A'.
+        dinv = torch.where(free, 1.0 / sigma, 0.0)
+        L, W, jac, live, ok = dist_chol.dist_factor_normal(
+            cfg.dist_mesh, prob.A, prob.cols(dinv), prob.row_mask, dc, shift, fdt,
+            axis=cfg.dist_axis)
+        factors = DistNormalFactors(L=L, W=W, jac=jac, dinv=dinv, del_c=dc.to(rdtype), live=live)
+    else:
+        gamma = 1.0 / torch.clamp(torch.abs(dc), min=CONDENSED_RELAX_MIN)
+        live = prob.live_rows()
+        L, W, jac, ok = dist_chol.dist_factor_condensed(
+            cfg.dist_mesh, prob.A_rows * free.unsqueeze(-2), prob.quad_strip(fdt), sigma,
+            prob.rows(live), gamma, shift, fdt, axis=cfg.dist_axis)
+        dc_eff = -torch.clamp(torch.abs(dc.to(rdtype)), min=CONDENSED_RELAX_MIN)
+        factors = DistCondensedFactors(L=L, W=W, jac=jac, sigma=sigma, gamma=gamma.to(rdtype),
+                                       del_c=dc_eff, live=live)
+    return factors, ok.unsqueeze(-1)
+
+
 def factorize(cfg: KKTConfig, prob: TorchQP, x, zl, zu, del_w, del_c, force_ok=None):
     """Factorize each lane's system, bumping its regularization x100 on
     failure, up to ``max_factor_trials`` attempts.  Returns (factors,
@@ -288,6 +355,8 @@ def factorize(cfg: KKTConfig, prob: TorchQP, x, zl, zu, del_w, del_c, force_ok=N
 
     def _attempt(dw, dc):
         sigma = build_sigma(prob, x, zl, zu, dw)
+        if spd and cfg.dist_mesh is not None:
+            return _attempt_dist(cfg, prob, sigma, dc, rdtype)
         if cfg.kind == KKTSystem.NORMAL:
             S, dinv, live = _assemble_normal(prob, sigma, dc, fdt)
             # Smat is the pre-shift Shat, as in the JAX package (its
@@ -389,9 +458,9 @@ def solve_condensed(
     path A dx comes from the tracked residual, ``rp + r_pcg - del_c dy``,
     and drifts by O(eps64) per call; the other paths form the products.
     """
-    if isinstance(factors, NormalFactors):
+    if isinstance(factors, _NORMAL):
         return _solve_normal(cfg, prob, factors, rx, rp, pcg_budget, pcg_rtol, return_products)
-    if isinstance(factors, CondensedFactors):
+    if isinstance(factors, _CONDENSED):
         return _solve_k1(cfg, prob, factors, rx, rp, pcg_budget, pcg_rtol, return_products)
     return _solve_k2(cfg, prob, factors, rx, rp, return_products)
 
@@ -410,8 +479,14 @@ def _spd_solve_fn(cfg: KKTConfig, factors, rdtype):
     Smat follows each application: z + Mhat^-1 (b - Smat z).  Runs under
     the factor precision."""
     L, jac = factors.L, factors.jac
-    base = _factor_solve(cfg, L)
-    refine = cfg.precond_refine and isinstance(factors, NormalFactors) and factors.Smat is not None
+    if isinstance(factors, (DistNormalFactors, DistCondensedFactors)):
+        from ..parallel import dist_chol
+
+        W = factors.W
+        base = lambda b: dist_chol.dist_chol_solve(cfg.dist_mesh, L, W, b, cfg.dist_axis)
+    else:
+        base = _factor_solve(cfg, L)
+    refine = isinstance(factors, NormalFactors) and cfg.precond_refine and factors.Smat is not None
 
     def solve_fn(b):
         bf = (b * jac).to(L.dtype)
@@ -479,7 +554,7 @@ def _solve_normal(cfg, prob, factors, rx, rp, pcg_budget, pcg_rtol, return_produ
         else:
             rt = 1e-14 if pcg_rtol is None else pcg_rtol
             iters = 4 * cfg.refinement_steps
-        if cfg.use_flex_pcg and factors.L.dtype != r2.dtype:
+        if cfg.use_flex_pcg and factors.L.dtype != r2.dtype and isinstance(factors, NormalFactors):
             # Flexible PCG: the outer Krylov on the exact fp64 operator,
             # each preconditioner application an inner CG in the factor
             # precision; no tracked residual, so A dx is formed below.
@@ -521,7 +596,7 @@ def _solve_k1(cfg, prob, factors, rx, rp, pcg_budget, pcg_rtol, return_products)
     if cfg.refinement_steps > 0 and pcg_budget != 0:
         rt = 1e-14 if pcg_rtol is None else pcg_rtol
         iters = pcg_budget if pcg_budget is not None else 4 * cfg.refinement_steps
-        if cfg.use_flex_pcg and factors.L.dtype != rhs.dtype:
+        if cfg.use_flex_pcg and factors.L.dtype != rhs.dtype and isinstance(factors, CondensedFactors):
             dx = linalg.pcg_flex(_mixed_inner_solver(cfg, factors), matvec, rhs,
                                  max_iters=iters, rtol=rt)
         else:
@@ -584,7 +659,7 @@ def solve_residual(prob: TorchQP, factors, rx, rp, dx, dy):
     A dx + del_c dy - rp, masked to free columns and live rows."""
     free = prob.free_mask
     dxf = torch.where(free, dx, 0.0)
-    if isinstance(factors, NormalFactors):
+    if isinstance(factors, _NORMAL):
         dinv = factors.dinv
         sigma = torch.where(free, 1.0 / torch.where(dinv == 0, 1.0, dinv), 1.0)
         hx = torch.where(dinv == 0, 0.0, sigma * dx)

@@ -3,8 +3,10 @@
 Instances padded to a common bucket shape are stacked on the leading lane
 dimension of one TorchQP (dense) or SparseTorchQP (ELL, ``sparse=True``)
 and solved together (``solver.driver.solve_device`` runs every lane; a
-lane that has stopped keeps its state).  The mesh-sharded path is ROADMAP
-item A11.
+lane that has stopped keeps its state).  With a mesh the lanes are split
+over its ``batch`` axis: each rank solves its block of lanes, with no
+communication inside the solve, and the results are gathered so that every
+rank returns all of them.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ..models.sparse import (
 )
 from ..solver import driver
 from ..solver.state import IPMState
+from ..utils import comm
 from ..utils.options import KKTSystem, load_options
 from ..utils.stats import IPMStats
 from ..utils.status import Status
@@ -106,10 +109,55 @@ def bucket_pad_sparse(models: Sequence[QuadraticModel], pad_multiple: int = 128,
     return SparseTorchQP.from_numpy(stacked, device=device, dtype=dtype), slacked
 
 
-def solve_batched(cfg: driver.SolverConfig, probs: TorchQP):
+def select_lanes(probs: Problem, lanes: Sequence[int], device=None) -> Problem:
+    """The problem of the given lanes (in that order, repeats allowed),
+    moved to ``device`` (default: where it is)."""
+    idx = torch.as_tensor(list(lanes), dtype=torch.long, device=probs.c.device)
+    device = probs.c.device if device is None else device
+    fields = {}
+    for f in dataclasses.fields(probs):
+        v = getattr(probs, f.name)
+        fields[f.name] = v.index_select(0, idx).to(device) if isinstance(v, torch.Tensor) else v
+    return type(probs)(**fields)
+
+
+def lane_block(k: int, mesh, axis: str = "batch") -> List[int]:
+    """The lanes this rank solves out of ``k``: its block of the batch
+    padded to a multiple of the axis size, the pad lanes repeating lane 0
+    (a solved duplicate costs nothing: every lane runs the same loop)."""
+    group = mesh.get_group(axis)
+    P, r = comm.size(group), comm.rank(group)
+    block = -(-k // P)
+    return [i if i < k else 0 for i in range(r * block, (r + 1) * block)]
+
+
+def _gather_lanes(t: torch.Tensor, group, k: int) -> torch.Tensor:
+    """Every rank's lane block of ``t``, in rank order, the pad lanes dropped."""
+    out = comm.gather_blocks(t, group)
+    return out.reshape((-1,) + tuple(t.shape[1:]))[:k]
+
+
+def solve_batched(cfg: driver.SolverConfig, probs: Problem, mesh=None, axis: str = "batch"):
     """Solve a stacked batch; returns (prob_scaled, scale, state) with a
-    leading lane dimension."""
-    return driver.solve_device(cfg, probs)
+    leading lane dimension.
+
+    With ``mesh`` each rank of the ``axis`` solves :func:`lane_block` of
+    ``probs`` (which every rank holds whole, on any device), moved to this
+    rank's device of the mesh (``rank_device``), and the scale and
+    state of every lane are gathered, so that each rank returns all of
+    them; prob_scaled is then None (the scaled lanes stay on their ranks).
+    """
+    if mesh is None:
+        return driver.solve_device(cfg, probs)
+    from .mesh import rank_device
+
+    k, group = probs.batch, mesh.get_group(axis)
+    local = select_lanes(probs, lane_block(k, mesh, axis), rank_device(mesh))
+    _, scale, state = driver.solve_device(cfg, local)
+    gather = lambda t: _gather_lanes(t, group, k)
+    scale = type(scale)(*map(gather, scale))
+    state = IPMState(**{f.name: gather(getattr(state, f.name)) for f in dataclasses.fields(state)})
+    return None, scale, state
 
 
 def batched_stats(models: Sequence[QuadraticModel], scale, state: IPMState,
@@ -145,18 +193,31 @@ def batched_stats(models: Sequence[QuadraticModel], scale, state: IPMState,
 
 def madipm_batch(models: Sequence[QuadraticModel], pad_multiple: int = 128,
                  dtype: torch.dtype = torch.float64, device=None, sparse: bool = False,
-                 **options) -> List[IPMStats]:
+                 mesh=None, **options) -> List[IPMStats]:
     """Solve many instances as the lanes of one batched solve: all LPs or
     all QPs on the dense route, any mix on the ELL route (``sparse=True``),
     where a bucket with a QP is solved on K1 (CONDENSED).  ``device``
     defaults to the first CUDA device; without one, ``device="cpu"`` must
     be given.  ``solver_time`` covers the solve only, not packing and
-    upload."""
+    upload (with a mesh it covers the upload of the rank's lanes).
+
+    ``mesh`` (a DeviceMesh with a ``batch`` axis) splits the lanes over the
+    ranks of that axis (:func:`solve_batched`), every rank calling with the
+    same models; each returns the stats of all of them, with the longest
+    rank's solve time.  The device is the rank's (``mesh_device``)."""
     _ensure_fp32_matmul()
     opt = load_options(**options)
-    device = torch.device(device) if device is not None else default_device()
+    if mesh is not None:
+        from .mesh import mesh_device
+
+        device = mesh_device(mesh, device)
+    else:
+        device = torch.device(device) if device is not None else default_device()
+    # With a mesh the bucket is packed on the host and only this rank's
+    # lanes are uploaded.
+    pack_device = None if mesh is not None else device
     if sparse:
-        probs, _ = bucket_pad_sparse(models, pad_multiple=pad_multiple, dtype=dtype, device=device)
+        probs, _ = bucket_pad_sparse(models, pad_multiple=pad_multiple, dtype=dtype, device=pack_device)
         if probs.is_qp:
             if opt.kkt_system is None:
                 opt = dataclasses.replace(opt, kkt_system=KKTSystem.CONDENSED)
@@ -165,11 +226,14 @@ def madipm_batch(models: Sequence[QuadraticModel], pad_multiple: int = 128,
                     f"sparse QP buckets require kkt_system=CONDENSED, got {opt.kkt_system}"
                 )
     else:
-        probs, _ = bucket_pad(models, pad_multiple=pad_multiple, dtype=dtype, device=device)
+        probs, _ = bucket_pad(models, pad_multiple=pad_multiple, dtype=dtype, device=pack_device)
     cfg = driver.make_config(opt, is_qp=probs.is_qp, dtype=dtype)
     _synchronize(device)
     t0 = time.time()
-    _, scale, state = solve_batched(cfg, probs)
+    _, scale, state = solve_batched(cfg, probs, mesh=mesh)
     _synchronize(device)
     wall = time.time() - t0
+    if mesh is not None:
+        t = torch.tensor([wall], dtype=torch.float64, device=device)
+        wall = float(comm.all_max(t, mesh.get_group("batch"))[0])
     return batched_stats(models, scale, state, wall)

@@ -35,7 +35,7 @@ import torch
 from ..models.qp import TorchQP
 from ..ops import kkt as kkt_ops
 from ..ops.kkt import KKTConfig
-from ..utils import sync
+from ..utils import comm, sync
 from ..utils.options import (
     AdaptiveRegularization,
     AdaptiveStep,
@@ -94,13 +94,23 @@ def _torch_dtype(d) -> torch.dtype:
     return found
 
 
-def make_config(opt: IPMOptions, is_qp: bool, dtype: torch.dtype = torch.float64) -> SolverConfig:
+def make_config(opt: IPMOptions, is_qp: bool, dtype: torch.dtype = torch.float64,
+                mesh=None, dist_axis: str = "cols") -> SolverConfig:
     """Resolve the options into a SolverConfig; the Ozaki matvecs, whose
-    code path is not ported, raise NotImplementedError naming ROADMAP A12."""
+    code path is not ported, raise NotImplementedError naming ROADMAP A12.
+    ``mesh`` (a DeviceMesh) splits the NORMAL or CONDENSED factor over its
+    axis ``dist_axis`` (parallel/dist_chol.py) instead of factoring the
+    whole matrix in every process."""
     kind = opt.resolved_kkt(is_qp)
     if kind == KKTSystem.NORMAL and is_qp:
         raise ValueError(
             "NormalKKT supports only linear programs; use kkt_system=AUGMENTED for QPs."
+        )
+    if mesh is not None and kind not in (KKTSystem.NORMAL, KKTSystem.CONDENSED):
+        raise ValueError(
+            f"the distributed factorization supports the NORMAL (LP) and "
+            f"CONDENSED (QP) KKT systems, got {kind} "
+            f"(use kkt_system=NORMAL/CONDENSED or mesh=None)"
         )
     if opt.factor_precision is not None and opt.factor_precision not in kkt_ops.MATMUL_PRECISION:
         raise ValueError(
@@ -136,6 +146,8 @@ def make_config(opt: IPMOptions, is_qp: bool, dtype: torch.dtype = torch.float64
         use_flex_pcg=opt.pcg_flex,
         factor_precision=opt.factor_precision,
         precond_refine=opt.precond_refine,
+        dist_mesh=mesh,
+        dist_axis=dist_axis,
     )
     return SolverConfig(
         kkt=kcfg,
@@ -732,6 +744,25 @@ def solve_device(cfg: SolverConfig, prob: TorchQP) -> Tuple[TorchQP, ScaleInfo, 
     return prob_s, scale, run_loop(cfg, prob_s, state)
 
 
+#: a ``max_wall_time`` at or above this is no budget
+NO_WALL_BUDGET = 1e6
+
+
+def _out_of_time(prob, t0: float, max_wall_time: float) -> bool:
+    """Whether the wall-clock budget is spent.  On a column-sharded problem
+    the ranks' clocks differ, so they agree through the group: the first
+    rank out of time stops them all (a rank-local answer would part them).
+    Without a budget no rank can run out, and the group is not asked."""
+    late = time.time() - t0 >= max_wall_time
+    group = getattr(prob, "group", None)
+    if group is None:
+        return late
+    if max_wall_time >= NO_WALL_BUDGET:
+        return False
+    flag = torch.tensor([int(late)], dtype=torch.int32, device=prob.device)
+    return sync.any_true(comm.all_max(flag, group) > 0)
+
+
 def solve_device_chunked(cfg: SolverConfig, prob: TorchQP, max_wall_time: float,
                          chunk: int = 25) -> Tuple[TorchQP, ScaleInfo, IPMState]:
     """The fused solve with a wall-clock guard: chunks of up to ``chunk``
@@ -743,7 +774,7 @@ def solve_device_chunked(cfg: SolverConfig, prob: TorchQP, max_wall_time: float,
     t0 = time.time()
     prob_s, scale, state = initialize(cfg, prob)
     while sync.any_true(state.status == _REGULAR):
-        if time.time() - t0 >= max_wall_time:
+        if _out_of_time(prob_s, t0, max_wall_time):
             state = update_termination(cfg, prob_s, state)
             status = torch.where(state.status == _REGULAR, int(Status.MAXIMUM_WALLTIME_EXCEEDED),
                                  state.status)
@@ -778,7 +809,7 @@ def _log_row(state: IPMState, scale: ScaleInfo) -> Tuple[int, int, str]:
 
 
 def solve_logged(cfg: SolverConfig, prob: TorchQP, print_fn: Callable[[str], None] = print,
-                 max_wall_time: float = 1e6) -> Tuple[TorchQP, ScaleInfo, IPMState]:
+                 max_wall_time: float = NO_WALL_BUDGET) -> Tuple[TorchQP, ScaleInfo, IPMState]:
     """The JAX ``solve_logged``: a host loop of ``update_termination`` then
     ``iteration``, the products taken anew each trip (no recurrence), the
     certificate refreshed every CERT_PERIOD trips, one table row per
@@ -798,7 +829,7 @@ def solve_logged(cfg: SolverConfig, prob: TorchQP, print_fn: Callable[[str], Non
         print_fn(row)
         if status != _REGULAR:
             break
-        if time.time() - t0 >= max_wall_time:
+        if _out_of_time(prob_s, t0, max_wall_time):
             state = state.replace(status=torch.full_like(state.status, int(Status.MAXIMUM_WALLTIME_EXCEEDED)))
             break
         state = iteration(cfg, prob_s, state)
@@ -814,7 +845,7 @@ def _phase_end(t: torch.Tensor) -> int:
 
 
 def solve_timed(cfg: SolverConfig, prob: TorchQP,
-                max_wall_time: float = 1e6) -> Tuple[TorchQP, ScaleInfo, IPMState, dict]:
+                max_wall_time: float = NO_WALL_BUDGET) -> Tuple[TorchQP, ScaleInfo, IPMState, dict]:
     """The JAX ``solve_timed``: the loop of :func:`solve_logged` split in
     three phases with wall timers, each phase ended by a sync.  Returns
     ``(prob_s, scale, state, timers)``; ``timers`` holds
@@ -840,7 +871,7 @@ def solve_timed(cfg: SolverConfig, prob: TorchQP,
         timers["eval_time"] += time.time() - t1
         if status != _REGULAR:
             break
-        if time.time() - t0 >= max_wall_time:
+        if _out_of_time(prob_s, t0, max_wall_time):
             state = state.replace(status=torch.full_like(state.status, int(Status.MAXIMUM_WALLTIME_EXCEEDED)))
             break
         t1 = time.time()
