@@ -7,7 +7,8 @@ Runs, in order, and fails (non-zero exit) at the first phase that fails:
 
 1. the device: a CUDA device must be present (no CPU fallback); prints its
    name and ``nvidia-smi``'s name and power limit;
-2. the build: compiles the kernel library from ``madipm_tpu_torch/csrc``;
+2. the build: compiles the kernel library from ``madipm_tpu_torch/csrc``
+   (``chol_inv.cu`` and ``ozaki.cu``, one nvcc each, started together);
 3. the kernels against their plain torch versions on the card, in fp32 and
    fp64: ``chol_inv`` (L, L^-1) and ``cholesky`` (L alone) at the main
    paths' shapes (B=8, N=1024; B=4, N=2048 for the sparse LP path) and at
@@ -71,7 +72,20 @@ Runs, in order, and fails (non-zero exit) at the first phase that fails:
    iterations and objective those of phase 4; ``chol_inv`` at (1, 1024) in
    fp32 and fp64 against its plain version; and the functions of
    ``tools/dryrun_multichip.py`` (a (batch, cols) MPC step, a
-   distributed-factor LP and a distributed K1 QP).
+   distributed-factor LP and a distributed K1 QP);
+13. the Ozaki fp64 operator (``ops/ozaki.py``, ``csrc/ozaki.cu``): the LP
+   suite of phase 4 with bench.py's accelerator options and
+   ``fp64_matvec="ozaki", ozaki_slices=5``, then with ``"ozaki_i8"`` and
+   shared slices, each 8/8 beside phase 4's native run (objectives to
+   1e-7); the four known-optimum LPs of phase 5 through ``"ozaki"`` at 5
+   slices with shared slices, at rel-KKT <= 1e-8; the kernel's four entry
+   points (bf16 and int8, A x and A' v) at (8, 1024, 2048), bf16 at 5 and
+   7 slices and int8 at 8, and at every other shape those runs launched
+   (A' of the suite through its stored transposed slices, one certificate
+   instance), against their plain versions (exact pair partials: within
+   1e-15 K rowmax|A| max|x|) and against torch.bmm in fp64 (within the
+   operator's bound), each with its time, the whole call's, the plain
+   version's, torch.bmm's and its bound.
 
 Each main path is driven with the launch counters set to 0 just before it
 and read just after.  The last two lines are the kernel table and
@@ -81,6 +95,7 @@ It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -100,7 +115,7 @@ from madipm_tpu_torch.models.generators import (
     make_suite,
     structured_suite,
 )
-from madipm_tpu_torch.ops import block_chol, chol_inv, linalg
+from madipm_tpu_torch.ops import _cuda, block_chol, chol_inv, linalg, ozaki
 from madipm_tpu_torch.parallel.batch import bucket_pad_sparse
 from madipm_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from madipm_tpu_torch.solver import driver
@@ -125,7 +140,8 @@ KERNEL_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 PEAK_BYTES = 3.35e12
 
-#: bench.py's accelerator options, without ozaki_slices (matvecs are native fp64)
+#: bench.py's accelerator options, without ozaki_slices: the matvecs are
+#: native fp64 (phase 13 adds fp64_matvec="ozaki", ozaki_slices=5)
 BENCH_OPTIONS = dict(
     tol=1e-8,
     max_iter=300,
@@ -826,6 +842,188 @@ def phase_options(device, models) -> dict:
     return runs["pcg_flex"]
 
 
+#: the tensor cores' dense peaks (NVIDIA's H100 SXM data sheet) for the
+#: Ozaki kernel's operation bound
+OZAKI_PEAK_OPS = {"bf16": 989e12, "i8": 1979e12}
+#: the TPU kernels each entry point of csrc/ozaki.cu replaces (XLA dots,
+#: no Pallas ancestor)
+OZAKI_REPLACES = {"bf16_fwd": "madipm_tpu/ops/ozaki.py:153", "bf16_t": "madipm_tpu/ops/ozaki.py:312",
+                  "i8_fwd": "madipm_tpu/ops/ozaki.py:279", "i8_t": "madipm_tpu/ops/ozaki.py:336"}
+
+
+def ozaki_bound(entry, sm, vs, out_len) -> tuple:
+    """(least milliseconds, what sets it) of one entry point: the slices,
+    the vector's slices and the row scale read once, the fp64 output
+    written once; 2 S 8 m n tensor-core operations (the n8 fragment)."""
+    B, S, m, n = sm.slices.shape
+    nbytes = (sm.slices.numel() * sm.slices.element_size() + vs.numel() * vs.element_size()
+              + sm.row_scale.numel() * 8 + B * out_len * 8)
+    ops = 2.0 * B * S * 8 * m * n
+    t_ops, t_bytes = ops / OZAKI_PEAK_OPS[entry.split("_")[0]], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_ozaki_entry(entry, A, vec, sm) -> dict:
+    """One entry point of the Ozaki kernel on the card: against its plain
+    version on the same vector slices (the pair partials are exact, so only
+    the last fp64 sum differs: <= 1e-15 K rowmax|A| max|x|) and against
+    torch.bmm in fp64 (the operator's bound, 2K 2^-8(S-1) for bf16 and
+    2K 2^-7(S-1) for int8, relative to rowmax|A| max|x|); then the times of
+    the kernel alone, the whole call (with the vector's slicing), the plain
+    version and torch.bmm, in turns."""
+    B, S, m, n = sm.slices.shape
+    transposed = entry.endswith("_t")
+    K = m if transposed else n
+    vs, vscale = ozaki.vector_operands(entry, sm, vec)
+    y = ozaki.kernel_contract(entry, sm, vs, vscale)
+    ref = ozaki.plain_contract(entry, sm, vs, vscale)
+    call = (ozaki.apply_t if transposed else ozaki.apply)(sm, vec)
+    library = (lambda: torch.bmm(vec.unsqueeze(1), A).squeeze(1)) if transposed else \
+        (lambda: torch.bmm(A, vec.unsqueeze(-1)).squeeze(-1))
+    exact = library()
+    torch.cuda.synchronize()
+    rowmax = A.abs().amax(dim=-1)  # (B, m)
+    scale = (rowmax.amax(dim=-1, keepdim=True) if transposed else rowmax) * vec.abs().amax(dim=-1, keepdim=True)
+    err_plain = float(((y - ref).abs() / scale).max())
+    err_exact = float(((y - exact).abs() / scale).max())
+    bits = 8 if entry.startswith("bf16") else 7
+    bound = 2.0 * K * 2.0 ** (-bits * (S - 1))
+    label = f"ozaki {entry} S={S} at ({B}, {m}, {n})"
+    log(f"{label}: relative to rowmax|A| max|x|, |kernel - plain| {err_plain:.3e} (tol 1e-15 K = "
+        f"{1e-15 * K:.3e}), |kernel - bmm| {err_exact:.3e} (bound {bound:.3e}); kernel and whole "
+        f"call equal: {torch.equal(y, call)}")
+    check(err_plain <= 1e-15 * K, f"{label}: the kernel disagrees with its plain version")
+    check(err_exact <= bound, f"{label}: the kernel is outside the operator's bound against torch.bmm")
+    check(torch.equal(y, call), f"{label}: the wrapper's call differs from the kernel on its own operands")
+    times = {}
+    for turn in ("kernel", "call", "plain", "library", "library", "plain", "call", "kernel"):
+        fn = {"kernel": lambda: ozaki.kernel_contract(entry, sm, vs, vscale),
+              "call": lambda: (ozaki.apply_t if transposed else ozaki.apply)(sm, vec),
+              "plain": lambda: ozaki.plain_contract(entry, sm, vs, vscale),
+              "library": library}[turn]
+        times.setdefault(turn, []).append(cuda_ms(fn, reps=2 if turn == "plain" else 10))
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    b_ms, b_by = ozaki_bound(entry, sm, vs, n if transposed else m)
+    log(f"{label}: kernel {ms['kernel']:.4f} ms, whole call {ms['call']:.4f} ms, plain "
+        f"{ms['plain']:.4f} ms, torch.bmm {ms['library']:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+        f"({b_ms / ms['kernel']:.1%} of it)")
+    return dict(shape=[B, m, n], dtype=entry.split("_")[0], slices=S,
+                max_abs_err=float((y - ref).abs().max()), ms=ms["kernel"], call_ms=ms["call"],
+                plain_ms=ms["plain"], bound_ms=b_ms, bound_by=b_by, library_ms=ms["library"])
+
+
+@contextlib.contextmanager
+def ozaki_shapes(seen: set):
+    """Adds to ``seen`` the (entry, slices' shape (B, S, m, n)) of every
+    launch of the Ozaki kernel made inside, so that each shape a main path
+    gives the kernel is held against the plain version."""
+    launch = ozaki.kernel_contract
+
+    def record(entry, sm, vs, vscale):
+        seen.add((entry, tuple(sm.slices.shape)))
+        return launch(entry, sm, vs, vscale)
+
+    ozaki.kernel_contract = record
+    try:
+        yield seen
+    finally:
+        ozaki.kernel_contract = launch
+
+
+#: the LP suite's (B, m, n), where every entry point is timed for the table
+OZAKI_MAIN_SHAPE = (8, 1024, 2048)
+
+
+def phase_ozaki_kernel(seen: set) -> dict:
+    """The four entry points of csrc/ozaki.cu at the LP suite's shape, bf16
+    at 5 and 7 slices, int8 at 8, and each at every (entry, shape) that
+    phase 13's runs launched (``seen``): A' of the suite through its stored
+    transposed slices is bf16_fwd at (8, 2048, 1024), the certificates run
+    one instance (B = 1).  Rows keyed by (entry, S, (B, m, n))."""
+    B, m, n = OZAKI_MAIN_SHAPE
+    wanted = {(f"{variant}_{d}", (B, S, m, n)) for variant, counts in (("bf16", (5, 7)), ("i8", (8,)))
+              for S in counts for d in ("fwd", "t")} | seen
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    rows = {}
+    for shape in sorted({(b, mm, nn) for _, (b, _, mm, nn) in wanted}):
+        b, mm, nn = shape
+        A = torch.randn(b, mm, nn, generator=gen, device="cuda", dtype=torch.float64)
+        A = A * (torch.rand(b, mm, nn, generator=gen, device="cuda") < 0.15)
+        A = A * torch.exp(torch.rand(b, mm, 1, generator=gen, device="cuda", dtype=torch.float64) * 4 - 2)
+        x = torch.randn(b, nn, generator=gen, device="cuda", dtype=torch.float64)
+        v = torch.randn(b, mm, generator=gen, device="cuda", dtype=torch.float64)
+        for variant in ("bf16", "i8"):
+            for S in sorted({S for entry, (bb, S, m2, n2) in wanted
+                             if entry.startswith(variant) and (bb, m2, n2) == shape}):
+                sm = ozaki.slice_any(A, variant, S)
+                check(tuple(sm.slices.shape) == (b, S, mm, nn), f"ozaki slices of {shape} at S={S}")
+                for entry, vec in ((f"{variant}_fwd", x), (f"{variant}_t", v)):
+                    if (entry, (b, S, mm, nn)) in wanted:
+                        rows[entry, S, shape] = check_ozaki_entry(entry, A, vec, sm)
+                del sm
+    check(all((e, sh[1], (sh[0], sh[2], sh[3])) in rows for e, sh in seen),
+          "an Ozaki kernel shape of the main path was not held against the plain version")
+    return rows
+
+
+def ozaki_batch(label, models, device, options, native) -> dict:
+    """The LP suite with an Ozaki option, launch counters set to 0 just
+    before and read just after: 8/8, each lane's iterations and objective
+    beside the native run ``native``, objectives to 1e-7 relative."""
+    ozaki.launches = dict.fromkeys(ozaki.ENTRIES, 0)
+    chol_inv.launches = 0
+    stats = mtt.madipm_batch(models, device=device, **options)
+    launches = dict(ozaki.launches)
+    iters = [s.iter for s in stats]
+    gaps = [abs(a.objective - b.objective) / max(1.0, abs(b.objective)) for a, b in zip(stats, native)]
+    wall = stats[0].solver_time
+    log(f"{label}: {sum(s.success for s in stats)}/{len(stats)} solved, iterations {iters} "
+        f"(native fp64 {[s.iter for s in native]}), wall {wall:.4f} s (native "
+        f"{native[0].solver_time:.4f} s), {sum(iters) / wall:.2f} iter/s; objectives against native "
+        f"{max(gaps):.3e} relative (worst); ozaki launches {launches}, chol_inv launches {chol_inv.launches}")
+    check(all(s.success for s in stats), f"{label}: the suite did not solve {len(stats)}/{len(stats)}")
+    check(all(np.all(np.isfinite(s.solution)) for s in stats), f"{label}: non-finite solutions")
+    check(max(gaps) <= 1e-7, f"{label}: objectives off the native run's")
+    return dict(stats=stats, launches=launches, iters=iters, wall=wall)
+
+
+def phase_ozaki(device, lp_run) -> dict:
+    """Phase 13: the Ozaki fp64 operator.  The LP suite of phase 4 (the
+    rhs-scaled models) with bench.py's accelerator options, fp64_matvec=
+    "ozaki" and 5 slices (A and A' stored: the bf16 forward entry), then
+    with "ozaki_i8" and shared slices (the int8 forward and transposed
+    entries); the four 1024 x 2048 known-optimum LPs through "ozaki" at 5
+    slices with shared slices (the bf16 forward and transposed entries), at
+    rel-KKT <= 1e-8; then the kernel's four entry points against their
+    plain versions and torch.bmm."""
+    native = lp_run["stats"]
+    ozaki_opts = dict(BENCH_OPTIONS, fp64_matvec="ozaki", ozaki_slices=5)
+    seen = set()
+    with ozaki_shapes(seen):
+        out = {"bf16": ozaki_batch("Ozaki LP suite (bf16, S=5)", lp_run["models"], device, ozaki_opts, native)}
+        check(out["bf16"]["launches"]["bf16_fwd"] > 0, "the Ozaki LP suite never launched the bf16 kernel")
+        out["i8"] = ozaki_batch("Ozaki LP suite (int8, shared slices)", lp_run["models"], device,
+                                dict(BENCH_OPTIONS, fp64_matvec="ozaki_i8", ozaki_share_slices=True), native)
+        check(out["i8"]["launches"]["i8_fwd"] > 0 and out["i8"]["launches"]["i8_t"] > 0,
+              "the int8 Ozaki LP suite never launched an int8 entry point")
+        ozaki.launches = dict.fromkeys(ozaki.ENTRIES, 0)
+        worst = 0.0
+        for deg in (False, True):
+            for seed in (1, 2):
+                qp, info = known_optimum_lp(1024, 2048, seed=seed + 1024, degenerate=deg)
+                worst = max(worst, certify(qp, info, device, f"{qp.name} seed {seed + 1024} ozaki S=5 shared",
+                                           **dict(CERT_OPTIONS, fp64_matvec="ozaki", ozaki_slices=5,
+                                                  ozaki_share_slices=True))[0])
+        out["cert"] = dict(ozaki.launches)
+    log(f"Ozaki kernel shapes (entry, (B, S, m, n)) launched in phase 13: {sorted(seen)}")
+    log(f"Ozaki certificate: 4/4 LPs at rel-KKT <= 1e-8 (worst {worst:.3e}); ozaki launches {out['cert']}")
+    check(out["cert"]["bf16_fwd"] > 0 and out["cert"]["bf16_t"] > 0,
+          "the Ozaki certificates never launched a bf16 entry point")
+    out["rows"] = phase_ozaki_kernel(seen)
+    return out
+
+
 #: phase 12's fp64 configuration: the default CHOLESKY system in fp64 (the
 #: distributed factor takes chol_inv for every diagonal block)
 FP64_OPTIONS = dict(
@@ -938,7 +1136,7 @@ def main() -> int:
     log(smi)
 
     t0 = time.time()
-    lib = chol_inv.build()
+    lib = _cuda.build()
     log(f"build: {lib.name} in {time.time() - t0:.2f} s")
 
     rows = phase_kernel()
@@ -958,6 +1156,7 @@ def main() -> int:
     phase_drivers("cuda")
     flex_run = phase_options("cuda", lp_run["models"])
     mesh = phase_mesh(lp_run)
+    oz = phase_ozaki("cuda", lp_run)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     for n in sizes:  # the structured suite's factors, the largest kept for the table
@@ -1005,6 +1204,27 @@ def main() -> int:
              replaces="madipm_tpu/ops/pallas_chol.py:239", launches=mesh["batch_launches"],
              **rows["chol_inv", torch.float32, 1024]),
     ]
+    oz_source = "madipm_tpu_torch/csrc/ozaki.cu"
+    for entry, path, launches in (
+            ("bf16_fwd", "LP suite, fp64_matvec='ozaki', ozaki_slices=5 (bench.py's accelerator options)",
+             oz["bf16"]["launches"]["bf16_fwd"]),
+            ("bf16_t", "known-optimum LPs 1024 x 2048, 'ozaki' S=5, ozaki_share_slices=True",
+             oz["cert"]["bf16_t"]),
+            ("i8_fwd", "LP suite, fp64_matvec='ozaki_i8', ozaki_share_slices=True",
+             oz["i8"]["launches"]["i8_fwd"]),
+            ("i8_t", "LP suite, fp64_matvec='ozaki_i8', ozaki_share_slices=True",
+             oz["i8"]["launches"]["i8_t"])):
+        n_slices = 5 if entry.startswith("bf16") else ozaki.N8_SLICES
+        row = dict(name=f"ozaki_{entry}", route="cuda", source=oz_source, path=path,
+                   replaces=OZAKI_REPLACES[entry], launches=launches,
+                   **oz["rows"][entry, n_slices, OZAKI_MAIN_SHAPE])
+        if entry.startswith("bf16"):
+            row["at_7_slices"] = oz["rows"][entry, 7, OZAKI_MAIN_SHAPE]
+        # the other shapes phase 13's runs gave this entry point
+        row["path_shapes"] = [r for (e, S, shape), r in sorted(oz["rows"].items())
+                              if e == entry and (S, shape) not in ((n_slices, OZAKI_MAIN_SHAPE),
+                                                                    (7, OZAKI_MAIN_SHAPE))]
+        kernels.append(row)
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

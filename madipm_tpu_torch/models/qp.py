@@ -22,6 +22,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..ops import ozaki
 from ..utils import comm
 
 INF = float("inf")
@@ -276,8 +277,9 @@ def _round_up(x: int, mult: int) -> int:
 
 #: TorchQP fields that hold masks (bool); every other tensor is floating.
 _MASK_FIELDS = ("row_mask", "col_mask")
-#: TorchQP fields of the column-sharded layout, absent from the numpy form
-_LAYOUT_FIELDS = ("group", "A_rows")
+#: TorchQP fields that the numpy form lacks: the column-sharded layout and
+#: the Ozaki slices
+_LAYOUT_FIELDS = ("group", "A_rows", "A_sl", "At_sl", "Q_sl")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -315,6 +317,12 @@ class TorchQP:
     group: Optional[object] = None
     #: this rank's row block of A, for the distributed K1 assembly
     A_rows: Optional[torch.Tensor] = None
+    #: Ozaki slices of A, A' and Q (ops/ozaki.py), present only when the
+    #: solver runs its fp64 products through them; built after the row and
+    #: objective scaling (driver.initialize), since they snapshot the values
+    A_sl: Optional[object] = None
+    At_sl: Optional[object] = None
+    Q_sl: Optional[object] = None
 
     @classmethod
     def from_numpy(cls, fields: dict, device=None, dtype=torch.float64) -> "TorchQP":
@@ -395,14 +403,45 @@ class TorchQP:
         return v[..., p * mb:(p + 1) * mb]
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """A @ x per lane: (B, n) -> (B, m)."""
-        ax = torch.bmm(self.A, self.cols(x).unsqueeze(-1)).squeeze(-1)
+        """A @ x per lane: (B, n) -> (B, m); through the Ozaki slices when
+        they are present and x is fp64."""
+        if self.A_sl is not None and x.dtype == torch.float64:
+            ax = ozaki.apply(self.A_sl, self.cols(x))
+        else:
+            ax = torch.bmm(self.A, self.cols(x).unsqueeze(-1)).squeeze(-1)
         return ax if self.group is None else comm.all_sum(ax, self.group)
 
     def rmatvec(self, y: torch.Tensor) -> torch.Tensor:
-        """A' @ y per lane: (B, m) -> (B, n)."""
-        aty = torch.bmm(y.unsqueeze(-2), self.A).squeeze(-2)
+        """A' @ y per lane: (B, m) -> (B, n).  In fp64 it takes the stored
+        transposed slices, or with shared slices (``At_sl`` None, ``A_sl``
+        present) the transposed contraction of the forward ones."""
+        if y.dtype == torch.float64 and self.At_sl is not None:
+            aty = ozaki.apply(self.At_sl, y)
+        elif y.dtype == torch.float64 and self.A_sl is not None:
+            aty = ozaki.apply_t(self.A_sl, y)
+        else:
+            aty = torch.bmm(y.unsqueeze(-2), self.A).squeeze(-2)
         return aty if self.group is None else comm.gather_last(aty, self.group)
+
+    def with_ozaki(self, variant: str = "bf16", share_slices: bool = False,
+                   n_slices: Optional[int] = None) -> "TorchQP":
+        """Copy carrying Ozaki slices of A, of A' (unless ``share_slices``:
+        A' products then contract the forward slices) and of Q.
+
+        ``variant`` "bf16" (``n_slices`` slices, default ozaki.N_SLICES) or
+        "i8" (ozaki.N8_SLICES int8 slices).  Call it after any scaling of A
+        or Q.  The shapes must be multiples of ozaki.CHUNK (the padding
+        gives it); otherwise self is returned unchanged.  With a group each
+        rank slices its own column block of A and row strip of Q."""
+        m, n = self.A.shape[-2:]
+        if m % ozaki.CHUNK or n % ozaki.CHUNK:
+            return self
+        return dataclasses.replace(
+            self,
+            A_sl=ozaki.slice_any(self.A, variant, n_slices),
+            At_sl=None if share_slices else ozaki.slice_any(self.A.mT, variant, n_slices),
+            Q_sl=None if self.Q is None else ozaki.slice_any(self.Q, variant, n_slices),
+        )
 
     def row_inf_norm(self) -> torch.Tensor:
         """max_j |A_ij| per row."""
@@ -410,17 +449,20 @@ class TorchQP:
         return amax if self.group is None else comm.all_max(amax, self.group)
 
     def scale_rows(self, con_scale: torch.Tensor) -> "TorchQP":
-        """Copy with the rows of A scaled (b is scaled by the caller)."""
+        """Copy with the rows of A scaled (b is scaled by the caller); any
+        Ozaki slices of A are dropped (driver.initialize rebuilds them)."""
         A_rows = self.A_rows
         if A_rows is not None:
             A_rows = A_rows * self.rows(con_scale).unsqueeze(-1)
-        return dataclasses.replace(self, A=self.A * con_scale.unsqueeze(-1), A_rows=A_rows)
+        return dataclasses.replace(self, A=self.A * con_scale.unsqueeze(-1), A_rows=A_rows,
+                                   A_sl=None, At_sl=None)
 
     def scale_quad(self, obj_scale: torch.Tensor) -> "TorchQP":
-        """Copy with Q scaled by the objective scaling (identity for an LP)."""
+        """Copy with Q scaled by the objective scaling (identity for an LP);
+        any Ozaki slices of Q are dropped."""
         if self.Q is None:
             return self
-        return dataclasses.replace(self, Q=self.Q * obj_scale.unsqueeze(-1))
+        return dataclasses.replace(self, Q=self.Q * obj_scale.unsqueeze(-1), Q_sl=None)
 
     def assemble_normal_matrix(self, dinv: torch.Tensor, factor_dtype: torch.dtype) -> torch.Tensor:
         """S = A diag(dinv) A' per lane, in the factor dtype (no
@@ -439,10 +481,14 @@ class TorchQP:
         return self.row_mask & (sq > 0)
 
     def qmatvec(self, x: torch.Tensor) -> torch.Tensor:
-        """Q @ x per lane (zeros for an LP)."""
+        """Q @ x per lane (zeros for an LP); through the Ozaki slices when
+        they are present and x is fp64."""
         if self.Q is None:
             return torch.zeros_like(x)
-        qx = torch.bmm(self.Q, x.unsqueeze(-1)).squeeze(-1)
+        if self.Q_sl is not None and x.dtype == torch.float64:
+            qx = ozaki.apply(self.Q_sl, x)
+        else:
+            qx = torch.bmm(self.Q, x.unsqueeze(-1)).squeeze(-1)
         return qx if self.group is None else comm.gather_last(qx, self.group)
 
     def assemble_ata(self, w: torch.Tensor, factor_dtype: torch.dtype) -> torch.Tensor:

@@ -5,10 +5,8 @@ wrappers.
 (L, L^-1), which replaces
 ``madipm_tpu/ops/pallas_chol.py::pallas_chol_inv``, and L alone, which
 replaces ``pallas_cholesky``; the source note says what bounds them on an
-H100 and how the kernel is laid out.  The sources under ``csrc/`` are
-compiled with ``nvcc`` at first use into ``madipm_tpu_torch/_build/`` (a
-shared library with a plain C interface, loaded with ``ctypes``), keyed by
-a hash of the sources and flags so that an edit rebuilds.
+H100 and how the kernel is laid out.  The kernel library is built and
+loaded by ``ops/_cuda.py`` at first use.
 
 The launch geometry is decided here, by :func:`plan`, from the batch, the
 size, the element type and two figures of the device, and handed to the C
@@ -24,16 +22,11 @@ the kernel launches of each.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
-from . import block_chol
+from . import _cuda, block_chol
 
 #: tile edge of the kernel: N must be a multiple of it
 PANEL = 32
@@ -46,13 +39,6 @@ launches = 0
 #: number of times :func:`cholesky` launched the CUDA kernel
 cholesky_launches = 0
 
-_PKG = Path(__file__).resolve().parent.parent
-_CSRC = _PKG / "csrc"
-_BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
 _lib = None
 
 # the kernel's geometry (csrc/chol_inv.cu: WARPS, CTAS_PER_SM, struct Geo)
@@ -120,54 +106,10 @@ def rows_of(cta: int, group: int, nb: int) -> range:
     return range(cta, nb, group)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = Path(cuda_home) / "bin" / "nvcc"
-    if path.exists():
-        return str(path)
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
-
-
-def _sources() -> tuple:
-    """The .cu files to compile and every file under csrc/ (headers too)."""
-    files = sorted(p for p in _CSRC.rglob("*") if p.is_file())
-    return [p for p in files if p.suffix == ".cu"], files
-
-
-def _build_key() -> str:
-    """Hash of every file under csrc/ (names and contents) and the flags."""
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for p in _sources()[1]:
-        h.update(p.relative_to(_CSRC).as_posix().encode())
-        h.update(p.read_bytes())
-    return h.hexdigest()[:16]
-
-
-def build() -> Path:
-    """Compile the kernel library if this source has not been built; return
-    its path.  Raises with the compiler's output when the build fails."""
-    out = _BUILD_DIR / f"libchol_inv_{_build_key()}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *map(str, _sources()[0])],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_CSRC} (rc={proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = _cuda.library()
         for name in ("madipm_chol_inv_f32", "madipm_chol_inv_f64",
                      "madipm_cholesky_f32", "madipm_cholesky_f64"):
             fn = getattr(lib, name)

@@ -1,0 +1,370 @@
+"""The Ozaki fp64 operator: y = A x and y = A' v from error-free slices.
+
+Port of ``madipm_tpu/ops/ozaki.py``.  A is split once per solve into S
+fixed-point slices, each row against a power-of-two scale e_i:
+
+- bf16 (``slice_matrix``): ``A_ij = e_i sum_k a_k[i,j]`` with slice k an
+  integer of at most 8 bits times 2^-8(k+1), exact in bf16;
+- int8 (``slice_matrix_i8``): ``A_ij = 2 e_i sum_k w_k[i,j] 2^-7(k+1)``
+  with |w_k| <= 64.
+
+The vector is sliced the same way against one power-of-two scale per
+call.  Every slice-pair product is then an integer on the pair's
+power-of-two grid, so each pair's contraction is exact (bf16: in fp32 over
+128-deep chunks; int8: in int32 below 2^19), and the only rounding is the
+final fp64 sum over the pairs.  With S bf16 slices the result carries
+about 2n 2^-8(S-1) error relative to rowmax|A| max|x|.
+
+Differences from the JAX module:
+
+- every tensor has a leading batch dimension (B, ...), where JAX used
+  ``vmap``: slices are (B, S, m, n), row scales (B, m), vectors (B, n);
+- the bf16 slices are stored (B, S, m, n) row-major, where JAX kept
+  (S, C, m, 128) chunk blocks for the MXU; the values are the same;
+- ``N_SLICES`` is a constant; a different count is the solver's
+  ``ozaki_slices`` option.
+
+The four products take the hand-written kernel ``csrc/ozaki.cu`` for a
+CUDA tensor (its note says what bounds it and how it is laid out) and
+their plain versions, in fp64 and exact pair by pair, for a CPU tensor.
+``launches`` counts the kernel's launches by entry point.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import _cuda
+
+#: slice width in bits of the bf16 slices (the bf16 significand): a product
+#: of two slices fits 16 bits, so a 128-deep fp32 sum of them is exact
+T_BITS = 8
+#: bf16 slices per operand (error ~2n 2^-8(S-1) relative to rowmax|A| max|x|)
+N_SLICES = 7
+#: contraction depth of one exact fp32 sum (2^16 * 2^7 = 2^23 < 2^24)
+CHUNK = 128
+#: slice width in bits of the int8 slices (|slice| <= 64)
+T8_BITS = 7
+#: int8 slices per operand
+N8_SLICES = 8
+#: the most slices the kernel takes: the vector's slices are the n8 of a fragment
+KERNEL_MAX_SLICES = 8
+#: the int32 sums are exact while the contraction is shorter than this
+I8_MAX_DEPTH = 2 ** 19
+
+#: kernel launches by entry point (``csrc/ozaki.cu``)
+ENTRIES = ("bf16_fwd", "bf16_t", "i8_fwd", "i8_t")
+launches = dict.fromkeys(ENTRIES, 0)
+
+_lib = None
+
+
+class SlicedMatrix(NamedTuple):
+    """bf16 Ozaki slices of a (B, m, n) fp64 matrix.
+
+    slices: (B, S, m, npad) bf16, npad = n rounded up to CHUNK; slice k
+        holds integers times 2^-8(k+1) (the significance is in the values).
+    row_scale: (B, m) fp64, the power-of-two scale e_i of each row.
+    """
+
+    slices: torch.Tensor
+    row_scale: torch.Tensor
+
+
+class SlicedMatrixI8(NamedTuple):
+    """int8 Ozaki slices of a (B, m, n) fp64 matrix.
+
+    slices: (B, S, m, n) int8, integers in [-64, 64]; slice k carries the
+        weight 2^-7(k+1) relative to row_scale.
+    row_scale: (B, m) fp64, 2 e_i (the 2 halves the leading slice into
+        int8 range).
+    """
+
+    slices: torch.Tensor
+    row_scale: torch.Tensor
+
+
+def _pow2_scale(mx: torch.Tensor) -> torch.Tensor:
+    """Power of two in (mx, 2 mx] (1.0 where mx == 0), exactly as the JAX
+    package builds it: mx (1 + 2^-20) rounded to fp32, at least 2^-120,
+    and 2^(exponent + 1) made from its int32 exponent bits, clipped to
+    [1, 254].  A scale one ulp below mx would overflow the leading slice."""
+    mx = mx.to(torch.float64)
+    m32 = torch.clamp((mx * (1.0 + 2.0 ** -20)).to(torch.float32), min=2.0 ** -120)
+    expo = (m32.view(torch.int32) >> 23) & 0xFF
+    pbits = (torch.clamp(expo + 1, 1, 254) << 23).to(torch.int32)
+    p32 = pbits.view(torch.float32)
+    return torch.where(mx > 0, p32.to(torch.float64), 1.0)
+
+
+def _slice_stack(v: torch.Tensor, n_slices: int, rows, dtype) -> torch.Tensor:
+    """(B, rows, ...) buffer for the slices of ``v``; rows past
+    ``n_slices`` are zero slices (the kernel's vector takes 8)."""
+    rows = rows or n_slices
+    shape = (v.shape[0], rows, *v.shape[1:])
+    if rows > n_slices:
+        return torch.zeros(shape, dtype=dtype, device=v.device)
+    return torch.empty(shape, dtype=dtype, device=v.device)
+
+
+def _fixed_point_slices(v: torch.Tensor, n_slices: int, rows=None) -> torch.Tensor:
+    """``v`` (in [-1, 1]) as ``n_slices`` bf16 slices of T_BITS bits,
+    stacked at dimension 1: (B, ...) -> (B, S, ...), or (B, rows, ...)
+    with zero slices after the S.  Matrix and vector operands share this
+    loop, so their products sit on one grid."""
+    out = _slice_stack(v, n_slices, rows, torch.bfloat16)
+    scale = 1.0
+    for k in range(n_slices):
+        w = torch.round(v * (2.0 ** T_BITS))
+        v = v * (2.0 ** T_BITS) - w
+        scale = scale / (2.0 ** T_BITS)
+        out[:, k] = (w * scale).to(torch.bfloat16)
+    return out
+
+
+def _fixed_point_slices_i8(v: torch.Tensor, n_slices: int, rows=None) -> torch.Tensor:
+    """``v`` (in [-1/2, 1/2]) as ``n_slices`` int8 slices of T8_BITS bits,
+    stacked at dimension 1 as :func:`_fixed_point_slices` stacks them;
+    round to nearest keeps every slice in [-64, 64]."""
+    out = _slice_stack(v, n_slices, rows, torch.int8)
+    for k in range(n_slices):
+        w = torch.round(v * (2.0 ** T8_BITS))
+        v = v * (2.0 ** T8_BITS) - w
+        out[:, k] = w.to(torch.int8)
+    return out
+
+
+def _batched(A: torch.Tensor, name: str) -> torch.Tensor:
+    if A.ndim != 3:
+        raise ValueError(f"{name}: expected a (B, m, n) stack, got {tuple(A.shape)}")
+    return A.to(torch.float64).contiguous()
+
+
+def slice_matrix(A: torch.Tensor, n_slices: int = N_SLICES) -> SlicedMatrix:
+    """bf16 slices of fp64 ``A`` (B, m, n), its columns padded to CHUNK."""
+    A = _batched(A, "slice_matrix")
+    n = A.shape[-1]
+    npad = -(-n // CHUNK) * CHUNK
+    if npad != n:
+        A = F.pad(A, (0, npad - n))
+    e = _pow2_scale(torch.amax(torch.abs(A), dim=-1))
+    return SlicedMatrix(_fixed_point_slices(A / e.unsqueeze(-1), n_slices), e)
+
+
+def slice_matrix_i8(A: torch.Tensor, n_slices: int = N8_SLICES) -> SlicedMatrixI8:
+    """int8 slices of fp64 ``A`` (B, m, n)."""
+    A = _batched(A, "slice_matrix_i8")
+    e = _pow2_scale(torch.amax(torch.abs(A), dim=-1))
+    S = _fixed_point_slices_i8(A / (2.0 * e.unsqueeze(-1)), n_slices)
+    return SlicedMatrixI8(S, 2.0 * e)
+
+
+def slice_any(A: torch.Tensor, variant: str = "bf16", n_slices=None):
+    """Slices of ``A`` for ``variant`` ("bf16" or "i8"); ``n_slices``
+    overrides N_SLICES for bf16 (the int8 count is N8_SLICES)."""
+    if variant == "bf16":
+        return slice_matrix(A, n_slices or N_SLICES)
+    if variant == "i8":
+        return slice_matrix_i8(A)
+    raise ValueError(f"unknown ozaki variant {variant!r}")
+
+
+def _vector(x: torch.Tensor, length: int, name: str, pad: bool) -> torch.Tensor:
+    x = x.to(torch.float64)
+    if x.ndim != 2:
+        raise ValueError(f"{name}: expected a (B, len) vector stack, got {tuple(x.shape)}")
+    if x.shape[-1] > length or (x.shape[-1] != length and not pad):
+        raise ValueError(f"{name}: vector of length {x.shape[-1]}, expected {length}")
+    if x.shape[-1] != length:
+        x = F.pad(x, (0, length - x.shape[-1]))
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: each slice pair's partial exactly in fp64
+# ---------------------------------------------------------------------------
+#
+# A pair's partial is at most K 2^16 (bf16) or K 2^12 (int8) units of its
+# grid, far inside fp64's 53 bits, so an fp64 product of the slice values
+# is exact pair by pair whatever its order of summation.
+
+
+def _pairs(a: torch.Tensor, vs: torch.Tensor, transposed: bool) -> torch.Tensor:
+    """Exact pair partials: (B, S, m, n) slices and (B, T, K) vector
+    slices -> (B, S, m, T) forward or (B, S, T, n) transposed, fp64."""
+    a = a.to(torch.float64)
+    vs = vs.to(torch.float64)
+    if transposed:
+        return torch.matmul(vs.unsqueeze(1), a)
+    return torch.matmul(a, vs.mT.unsqueeze(1))
+
+
+def _i8_weights(S: int, T: int, device) -> torch.Tensor:
+    """w[s, t] = 2^-7(s+t+2), the pair significance of the int8 slices."""
+    s = np.arange(S)[:, None]
+    t = np.arange(T)[None, :]
+    return torch.as_tensor(2.0 ** (-T8_BITS * (s + t + 2.0)), dtype=torch.float64, device=device)
+
+
+def plain_contract(entry: str, sm, vs: torch.Tensor, vscale: torch.Tensor) -> torch.Tensor:
+    """The plain version of entry point ``entry`` (one of ENTRIES): the
+    fp64 sum of the exact pair partials of ``sm`` and the vector's slices
+    ``vs`` (B, T, K), times ``vscale`` (B,) and, forward, the row scale."""
+    transposed = entry.endswith("_t")
+    P = _pairs(sm.slices, vs, transposed)
+    if entry.startswith("bf16"):
+        y = P.sum(dim=(1, 2) if transposed else (1, 3))
+    else:
+        W = _i8_weights(P.shape[1], vs.shape[1], P.device)
+        y = torch.einsum("bstn,st->bn" if transposed else "bsmt,st->bm", P, W)
+    y = vscale.to(torch.float64).unsqueeze(-1) * y
+    return y if transposed else sm.row_scale * y
+
+
+# ---------------------------------------------------------------------------
+# The kernel
+# ---------------------------------------------------------------------------
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = _cuda.library()
+        for entry in ENTRIES:
+            fn = getattr(lib, f"madipm_ozaki_{entry}")
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check_kernel_operands(entry: str, sm, vs: torch.Tensor, vscale: torch.Tensor):
+    """What the kernel takes; raises on anything else.  The device comes
+    last, so that a tensor off the card reaches the other checks."""
+    B, S, m, n = sm.slices.shape
+    if S > KERNEL_MAX_SLICES:
+        raise ValueError(f"ozaki {entry}: the kernel takes at most {KERNEL_MAX_SLICES} slices, got {S}")
+    if m % CHUNK or n % CHUNK:
+        raise ValueError(f"ozaki {entry}: the kernel needs (m, n) multiples of {CHUNK}, got ({m}, {n})")
+    if not sm.slices.is_contiguous():
+        raise ValueError(f"ozaki {entry}: slices must be contiguous")
+    want = (B, KERNEL_MAX_SLICES, m if entry.endswith("_t") else n)
+    if tuple(vs.shape) != want or vs.dtype != sm.slices.dtype or not vs.is_contiguous():
+        raise ValueError(f"ozaki {entry}: the vector's slices must be a contiguous {want} {sm.slices.dtype} "
+                         f"stack (vector_operands pads them to {KERNEL_MAX_SLICES}), got {tuple(vs.shape)} "
+                         f"{vs.dtype}")
+    if tuple(vscale.shape) != (B,):
+        raise ValueError(f"ozaki {entry}: the vector's scale must be ({B},), got {tuple(vscale.shape)}")
+    if sm.slices.device.type != "cuda" or vs.device != sm.slices.device:
+        raise ValueError(f"ozaki {entry}: slices and vector must be on one CUDA device, "
+                         f"got {sm.slices.device} and {vs.device}")
+
+
+def kernel_contract(entry: str, sm, vs: torch.Tensor, vscale: torch.Tensor) -> torch.Tensor:
+    """What :func:`plain_contract` computes, by one launch of the kernel's
+    entry point ``madipm_ozaki_<entry>``."""
+    _check_kernel_operands(entry, sm, vs, vscale)
+    B, S, m, n = sm.slices.shape
+    transposed = entry.endswith("_t")
+    vscale = vscale.to(torch.float64).contiguous()
+    rs = None if transposed else sm.row_scale.to(torch.float64).contiguous()
+    out = torch.empty((B, n if transposed else m), dtype=torch.float64, device=vs.device)
+    fn = getattr(_load(), f"madipm_ozaki_{entry}")
+    with torch.cuda.device(vs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(sm.slices.data_ptr(), None if rs is None else rs.data_ptr(), vs.data_ptr(),
+                vscale.data_ptr(), out.data_ptr(), B, S, m, n, stream)
+    if rc != 0:
+        raise RuntimeError(f"ozaki {entry}: CUDA kernel launch failed with cudaError {rc}")
+    launches[entry] += 1
+    return out
+
+
+def _on_cpu(sm, vec: torch.Tensor) -> bool:
+    return sm.slices.device.type == "cpu" and vec.device.type == "cpu"
+
+
+def _contract(entry: str, sm, vs: torch.Tensor, vscale: torch.Tensor) -> torch.Tensor:
+    """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if _on_cpu(sm, vs):
+        return plain_contract(entry, sm, vs, vscale)
+    return kernel_contract(entry, sm, vs, vscale)
+
+
+# ---------------------------------------------------------------------------
+# The four products
+# ---------------------------------------------------------------------------
+
+
+def vector_operands(entry: str, sm, vec: torch.Tensor):
+    """The vector's slices and scale for entry point ``entry``, sliced with
+    plain elementwise ops (n S elements): forward x, zero-padded to the
+    slices' width; transposed w = row_scale v, since A = diag(e) rec gives
+    A' v = rec' (e v).  Returns (slices (B, S, K), scale (B,)); off the
+    CPU the slices are made straight into the kernel's (B, 8, K) layout,
+    zero after the S."""
+    S, m, n = sm.slices.shape[1:]
+    i8 = entry.startswith("i8")
+    if entry.endswith("_t"):
+        if i8 and m >= I8_MAX_DEPTH:
+            raise ValueError(f"matvec_t_i8 exactness requires m < 2^19 rows; got {m}")
+        if not i8 and m % CHUNK:
+            raise ValueError(f"matvec_t requires rows divisible by {CHUNK}; got {m}")
+        w = sm.row_scale * _vector(vec, m, f"ozaki {entry}", pad=False)
+    else:
+        if i8 and n >= I8_MAX_DEPTH:
+            raise ValueError(f"matvec_i8 exactness requires contraction length n < 2^19; got {n}")
+        w = _vector(vec, n, f"ozaki {entry}", pad=True)
+    f = _pow2_scale(torch.amax(torch.abs(w), dim=-1))
+    rows = None if _on_cpu(sm, vec) else max(S, KERNEL_MAX_SLICES)
+    if i8:
+        return _fixed_point_slices_i8(w / (2.0 * f.unsqueeze(-1)), S, rows), 2.0 * f
+    return _fixed_point_slices(w / f.unsqueeze(-1), S, rows), f
+
+
+def matvec(sm: SlicedMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A x (B, m) from bf16 slices; x (B, n) fp64, zero-padded to the
+    slices' padded width."""
+    return _contract("bf16_fwd", sm, *vector_operands("bf16_fwd", sm, x))
+
+
+def matvec_t(sm: SlicedMatrix, v: torch.Tensor) -> torch.Tensor:
+    """y = A' v (B, npad) from the FORWARD bf16 slices (no transposed copy).
+    The contraction runs over m in 128-deep exact chunks, so m must divide
+    by CHUNK."""
+    return _contract("bf16_t", sm, *vector_operands("bf16_t", sm, v))
+
+
+def matvec_i8(sm: SlicedMatrixI8, x: torch.Tensor) -> torch.Tensor:
+    """y = A x (B, m) from int8 slices (exact int32 sums: n < 2^19)."""
+    return _contract("i8_fwd", sm, *vector_operands("i8_fwd", sm, x))
+
+
+def matvec_t_i8(sm: SlicedMatrixI8, v: torch.Tensor) -> torch.Tensor:
+    """y = A' v (B, n) from the forward int8 slices (m < 2^19)."""
+    return _contract("i8_t", sm, *vector_operands("i8_t", sm, v))
+
+
+def apply(sm, x: torch.Tensor) -> torch.Tensor:
+    """y = A x, by the slices' type."""
+    if isinstance(sm, SlicedMatrixI8):
+        return matvec_i8(sm, x)
+    return matvec(sm, x)
+
+
+def apply_t(sm, v: torch.Tensor) -> torch.Tensor:
+    """y = A' v from the forward slices, by their type."""
+    if isinstance(sm, SlicedMatrixI8):
+        return matvec_t_i8(sm, v)
+    return matvec_t(sm, v)
+
+
+def operator_bound(n: int, n_slices: int) -> float:
+    """The bf16 operator's error bound 2n 2^-8(S-1), relative to
+    rowmax|A| max|x|."""
+    return 2.0 * n * 2.0 ** (-T_BITS * (n_slices - 1))

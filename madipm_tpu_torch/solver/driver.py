@@ -28,12 +28,14 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import warnings
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..models.qp import TorchQP
 from ..ops import kkt as kkt_ops
+from ..ops import ozaki
 from ..ops.kkt import KKTConfig
 from ..utils import comm, sync
 from ..utils.options import (
@@ -83,6 +85,21 @@ class SolverConfig:
     mu_balance: float = 1e-2
     predictor_pcg_budget: Optional[int] = None
     product_recurrence: bool = True
+    #: fp64 products of A, A' and Q through the Ozaki slices (ops/ozaki.py);
+    #: resolved from IPMOptions.fp64_matvec
+    use_ozaki: bool = False
+    #: "bf16" or "i8"
+    ozaki_variant: str = "bf16"
+    #: bf16 slices per operand (None: ozaki.N_SLICES)
+    ozaki_slices: Optional[int] = None
+    #: None: share the forward slices for A' products once the two copies
+    #: would pass SHARE_SLICES_BYTES (see ozaki_share)
+    ozaki_share_slices: Optional[bool] = None
+
+
+#: device memory above which the stored transposed Ozaki slices are dropped
+#: and A' products contract the forward slices
+SHARE_SLICES_BYTES = 1 << 30
 
 
 def _torch_dtype(d) -> torch.dtype:
@@ -96,11 +113,12 @@ def _torch_dtype(d) -> torch.dtype:
 
 def make_config(opt: IPMOptions, is_qp: bool, dtype: torch.dtype = torch.float64,
                 mesh=None, dist_axis: str = "cols") -> SolverConfig:
-    """Resolve the options into a SolverConfig; the Ozaki matvecs, whose
-    code path is not ported, raise NotImplementedError naming ROADMAP A12.
-    ``mesh`` (a DeviceMesh) splits the NORMAL or CONDENSED factor over its
-    axis ``dist_axis`` (parallel/dist_chol.py) instead of factoring the
-    whole matrix in every process."""
+    """Resolve the options into a SolverConfig.  ``fp64_matvec``: "auto"
+    and "emulated" mean native fp64 products (this backend has fp64),
+    "ozaki" the bf16 Ozaki slices and "ozaki_i8" the int8 ones, both only
+    when ``dtype`` is fp64.  ``mesh`` (a DeviceMesh) splits the NORMAL or
+    CONDENSED factor over its axis ``dist_axis`` (parallel/dist_chol.py)
+    instead of factoring the whole matrix in every process."""
     kind = opt.resolved_kkt(is_qp)
     if kind == KKTSystem.NORMAL and is_qp:
         raise ValueError(
@@ -117,11 +135,7 @@ def make_config(opt: IPMOptions, is_qp: bool, dtype: torch.dtype = torch.float64
             f"factor_precision must be None or one of {sorted(kkt_ops.MATMUL_PRECISION)}, "
             f"got {opt.factor_precision!r}"
         )
-    if opt.fp64_matvec in ("ozaki", "ozaki_i8"):
-        raise NotImplementedError(
-            f"fp64_matvec={opt.fp64_matvec!r} is ROADMAP item A12; fp64 matvecs are native here"
-        )
-    if opt.fp64_matvec not in ("auto", "emulated"):
+    if opt.fp64_matvec not in ("auto", "emulated", "ozaki", "ozaki_i8"):
         raise ValueError(
             "fp64_matvec must be 'auto', 'ozaki', 'ozaki_i8' or 'emulated', "
             f"got {opt.fp64_matvec!r}"
@@ -175,6 +189,10 @@ def make_config(opt: IPMOptions, is_qp: bool, dtype: torch.dtype = torch.float64
         mu_balance=opt.mu_balance,
         predictor_pcg_budget=opt.predictor_pcg_budget,
         product_recurrence=opt.product_recurrence,
+        use_ozaki=opt.fp64_matvec in ("ozaki", "ozaki_i8") and dtype == torch.float64,
+        ozaki_variant="i8" if opt.fp64_matvec == "ozaki_i8" else "bf16",
+        ozaki_slices=opt.ozaki_slices,
+        ozaki_share_slices=opt.ozaki_share_slices,
     )
 
 
@@ -253,6 +271,43 @@ def _update_regularization(cfg: SolverConfig, state: IPMState):
 # ---------------------------------------------------------------------------
 
 
+def ozaki_share(cfg: SolverConfig, m: int, n: int) -> bool:
+    """Whether A' products contract the forward Ozaki slices of an (m, n)
+    block instead of a stored transposed copy: as configured, or (None)
+    once the two copies of one instance would pass SHARE_SLICES_BYTES,
+    counted with the variant's real slice count and element size."""
+    if cfg.ozaki_share_slices is not None:
+        return cfg.ozaki_share_slices
+    if cfg.ozaki_variant == "i8":
+        slices, size = ozaki.N8_SLICES, 1
+    else:
+        slices, size = cfg.ozaki_slices or ozaki.N_SLICES, 2
+    return 2 * slices * size * m * n > SHARE_SLICES_BYTES
+
+
+def _check_ozaki_slices(cfg: SolverConfig, n: int, device_type: str):
+    """Refuse a bf16 slice count the kernel cannot take on CUDA, and warn
+    when the bf16 operator's error bound at the padded ``n`` is above a
+    tenth of the tolerance, naming a slice count that meets it and that
+    the device takes (the plain CPU version takes any up to 63)."""
+    if cfg.ozaki_variant != "bf16":
+        return
+    slices = cfg.ozaki_slices or ozaki.N_SLICES
+    most = ozaki.KERNEL_MAX_SLICES if device_type == "cuda" else 63
+    if slices > most:
+        raise ValueError(f"ozaki_slices={slices}: the CUDA kernel takes at most {most} slices; "
+                         f"use fp64_matvec='auto' for native fp64 products")
+    if ozaki.operator_bound(n, slices) <= 0.1 * cfg.tol:
+        return
+    enough = next((s for s in range(slices + 1, most + 1) if ozaki.operator_bound(n, s) <= 0.1 * cfg.tol),
+                  None)
+    advice = f"use ozaki_slices={enough}" if enough is not None else "use native fp64 products"
+    warnings.warn(
+        f"the bf16 Ozaki operator with {slices} slices has error bound 2n 2^-8(S-1) = "
+        f"{ozaki.operator_bound(n, slices):.3g} at n={n}, above 0.1 * tol = {0.1 * cfg.tol:.3g}; "
+        f"{advice}", stacklevel=3)
+
+
 def _lane_min0(v):
     return torch.clamp(torch.amin(v, dim=-1, keepdim=True), max=0.0)
 
@@ -288,6 +343,13 @@ def initialize(cfg: SolverConfig, prob: TorchQP) -> Tuple[TorchQP, ScaleInfo, IP
     y = prob.y0
 
     prob_s, scale = _apply_scaling(cfg, prob, x)
+    # The Ozaki slices snapshot the scaled matrices: from here on every
+    # fp64 product of A, A' and Q runs through them.  The sparse (ELL)
+    # problem has no with_ozaki and keeps its native fp64 products.
+    if cfg.use_ozaki and hasattr(prob_s, "with_ozaki"):
+        _check_ozaki_slices(cfg, prob_s.n, prob_s.A.device.type)
+        share = ozaki_share(cfg, *prob_s.A.shape[-2:])
+        prob_s = prob_s.with_ozaki(cfg.ozaki_variant, share_slices=share, n_slices=cfg.ozaki_slices)
 
     del_w, del_c, reg_p, reg_d = _init_regularization(cfg, prob.c0)
     g0 = K.eval_grad(prob_s, x)

@@ -3,9 +3,7 @@
 Field-for-field copy of ``madipm_tpu/utils/options.py`` (the JAX package
 cannot be imported without jax).  The history and measurements behind
 each default live there; what differs in this package is noted on the
-field.  The Ozaki matvecs, whose code path is not ported, are accepted
-here and rejected with ``NotImplementedError`` by
-``solver.driver.make_config``, naming ROADMAP item A12.
+field.
 """
 
 from __future__ import annotations
@@ -201,10 +199,17 @@ class IPMOptions:
     #: flexible PCG: the fp64 PCG preconditioned by an inner CG of
     #: MIXED_INNER_ITERS trips in the factor precision (fp32 factor only)
     pcg_flex: bool = False
-    #: fp64 matvecs: "auto" and "emulated" mean native fp64 here;
-    #: "ozaki" and "ozaki_i8" are ROADMAP item A12
+    #: fp64 products of A, A' and Q: "auto" and "emulated" mean native fp64
+    #: (the card has it); "ozaki" the error-free bf16 slices and "ozaki_i8"
+    #: the int8 slices of ops/ozaki.py, through the tensor-core kernel
+    #: csrc/ozaki.cu on CUDA (fp64 solves only)
     fp64_matvec: str = "auto"
+    #: bf16 Ozaki slices per operand (None = ops/ozaki.N_SLICES = 7); the
+    #: operator's error bound is 2n 2^-8(S-1), and the solve warns when it
+    #: passes 0.1 * tol (at most 8 on CUDA)
     ozaki_slices: Optional[int] = None
+    #: True: A' products contract the forward slices (no transposed copy);
+    #: None: only once the two copies of an instance pass 1 GiB
     ozaki_share_slices: Optional[bool] = None
 
     def resolved_kkt(self, is_qp: bool) -> KKTSystem:

@@ -14,7 +14,7 @@ import shutil
 import pytest
 import torch
 
-from madipm_tpu_torch.ops import block_chol, chol_inv
+from madipm_tpu_torch.ops import _cuda, block_chol, chol_inv
 
 H100_SMS = 132
 H100_SMEM = 232_448
@@ -85,7 +85,7 @@ def test_smem_bytes_match_the_source():
     tiles."""
     assert chol_inv.smem_bytes(torch.float32) == (4 * 2 * 2 * 32 * 36 + 3 * 32 * 36) * 4
     assert chol_inv.smem_bytes(torch.float64) == (4 * 2 * 2 * 32 * 20 + 3 * 32 * 36) * 8
-    src = (chol_inv._CSRC / "chol_inv.cu").read_text()
+    src = (_cuda._CSRC / "chol_inv.cu").read_text()
     for line in ("constexpr int WARPS = 4;", "constexpr int CTAS_PER_SM = 2;",
                  "WARPS * WARP_ELEMS + 3 * NB * LDT"):
         assert line in src
@@ -138,22 +138,22 @@ def test_another_device_raises_instead_of_falling_back(name):
 
 def test_build_key_follows_every_source_file(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
-    shutil.copytree(chol_inv._CSRC, csrc)
-    monkeypatch.setattr(chol_inv, "_CSRC", csrc)
-    key = chol_inv._build_key()
-    assert key == chol_inv._build_key()  # stable
+    shutil.copytree(_cuda._CSRC, csrc)
+    monkeypatch.setattr(_cuda, "_CSRC", csrc)
+    key = _cuda._build_key()
+    assert key == _cuda._build_key()  # stable
     cu = csrc / "chol_inv.cu"
     cu.write_text(cu.read_text() + "\n// edited\n")
-    edited = chol_inv._build_key()
+    edited = _cuda._build_key()
     assert edited != key
     (csrc / "extra.cuh").write_text("// a header the kernel may include\n")
-    with_header = chol_inv._build_key()
+    with_header = _cuda._build_key()
     assert with_header not in (key, edited)
     (csrc / "extra.cuh").write_text("// changed\n")
-    assert chol_inv._build_key() not in (key, edited, with_header)
+    assert _cuda._build_key() not in (key, edited, with_header)
     (csrc / "second.cu").write_text("// a second translation unit\n")
-    sources, files = chol_inv._sources()
-    assert [p.name for p in sources] == ["chol_inv.cu", "second.cu"]
-    assert {p.name for p in files} == {"chol_inv.cu", "extra.cuh", "second.cu"}
-    monkeypatch.setattr(chol_inv, "_NVCC_FLAGS", chol_inv._NVCC_FLAGS + ("-lineinfo",))
-    assert chol_inv._build_key() not in (key, edited, with_header)
+    sources, files = _cuda._sources()
+    assert [p.name for p in sources] == ["chol_inv.cu", "ozaki.cu", "second.cu"]
+    assert {p.name for p in files} == {"chol_inv.cu", "extra.cuh", "ozaki.cu", "second.cu"}
+    monkeypatch.setattr(_cuda, "_NVCC_FLAGS", _cuda._NVCC_FLAGS + ("-lineinfo",))
+    assert _cuda._build_key() not in (key, edited, with_header)

@@ -197,12 +197,13 @@ def test_generators_match():
         assert a.name == b.name
 
 
-#: (options, exception or None, match or the KKTConfig field that must take
-#: the option); the ids are the ones these cases had while the three A7b
-#: options were refused
+#: (options, exception or None, match or the field that must take the
+#: option: of the KKTConfig, or of the SolverConfig for the Ozaki options);
+#: the ids are the ones these cases had while the three A7b options and the
+#: two Ozaki products were refused
 MAKE_CONFIG_CASES = [
-    (dict(fp64_matvec="ozaki"), NotImplementedError, "A12", "kw0-NotImplementedError-A12"),
-    (dict(fp64_matvec="ozaki_i8"), NotImplementedError, "A12", "kw1-NotImplementedError-A12"),
+    (dict(fp64_matvec="ozaki"), None, "use_ozaki", "kw0-NotImplementedError-A12"),
+    (dict(fp64_matvec="ozaki_i8"), None, "ozaki_variant", "kw1-NotImplementedError-A12"),
     (dict(fp64_matvec="nope"), ValueError, "fp64_matvec", "kw2-ValueError-fp64_matvec"),
     (dict(factor_precision="high"), None, "factor_precision", "kw3-NotImplementedError-A7b"),
     (dict(barrier_update="monotone"), ValueError, "barrier_update", "kw4-ValueError-barrier_update"),
@@ -217,9 +218,9 @@ MAKE_CONFIG_CASES = [
 @pytest.mark.parametrize("kw, exc, match", [c[:3] for c in MAKE_CONFIG_CASES],
                          ids=[c[3] for c in MAKE_CONFIG_CASES])
 def test_make_config_rejects_unported(kw, exc, match):
-    """The Ozaki matvecs (A12) and invalid values are refused; the A7b
-    options are accepted and passed into the KKTConfig as the JAX
-    package's make_config passes them."""
+    """Invalid values are refused; the A7b options are passed into the
+    KKTConfig, and the two Ozaki products resolve to the use_ozaki and
+    ozaki_variant that the JAX package's make_config gives on the CPU."""
     if exc is not None:
         with pytest.raises(exc, match=match):
             driver.make_config(topt.IPMOptions(**kw), is_qp=False)
@@ -229,6 +230,10 @@ def test_make_config_rejects_unported(kw, exc, match):
     (value,) = kw.values()
     cfg = driver.make_config(topt.IPMOptions(**kw), is_qp=False)
     jcfg = jdriver.make_config(jopt.IPMOptions(**kw), is_qp=False)
+    if "fp64_matvec" in kw:
+        assert (cfg.use_ozaki, cfg.ozaki_variant) == (jcfg.use_ozaki, jcfg.ozaki_variant)
+        assert cfg.use_ozaki and getattr(cfg, match) == getattr(jcfg, match)
+        return
     assert getattr(cfg.kkt, match) == getattr(jcfg.kkt, match) == value
 
 
