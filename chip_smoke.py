@@ -14,8 +14,10 @@ Runs, in order, and fails (non-zero exit) at the first phase that fails:
    paths' shapes (B=8, N=1024; B=4, N=2048 for the sparse LP path) and at
    (3, 256), each with its time, its plain version's, one torch.linalg
    call's and its bound; then at one
-   tile (1, 32), odd tile counts (2, 96), (1, 128), (16, 1024), (2, 4096)
-   and more instances than one wave holds (600, 128); the L of the two
+   tile (1, 32), odd tile counts (2, 96), (1, 128), (16, 1024), one
+   instance at (1, 2048), (2, 4096) and more instances than one wave holds
+   (600, 128), one instance alone also against its plain version's time;
+   the L of the two
    bit-identical at every shape; an indefinite matrix non-finite, alone and
    as one lane of a batch whose other lanes do not change by a bit; 50
    calls with no sync between them, all bit-identical; and the operations
@@ -77,15 +79,19 @@ Runs, in order, and fails (non-zero exit) at the first phase that fails:
    suite of phase 4 with bench.py's accelerator options and
    ``fp64_matvec="ozaki", ozaki_slices=5``, then with ``"ozaki_i8"`` and
    shared slices, each 8/8 beside phase 4's native run (objectives to
-   1e-7); the four known-optimum LPs of phase 5 through ``"ozaki"`` at 5
-   slices with shared slices, at rel-KKT <= 1e-8; the kernel's four entry
-   points (bf16 and int8, A x and A' v) at (8, 1024, 2048), bf16 at 5 and
-   7 slices and int8 at 8, and at every other shape those runs launched
-   (A' of the suite through its stored transposed slices, one certificate
-   instance), against their plain versions (exact pair partials: within
-   1e-15 K rowmax|A| max|x|) and against torch.bmm in fp64 (within the
-   operator's bound), each with its time, the whole call's, the plain
-   version's, torch.bmm's and its bound.
+   1e-7, the wall's ratio to native printed); the four known-optimum LPs
+   of phase 5 through ``"ozaki"`` at 5 slices with shared slices, at
+   rel-KKT <= 1e-8; the kernel's four entry points (bf16 and int8, A x and
+   A' v) at (8, 1024, 2048), bf16 at 5 and 7 slices and int8 at 8, and at
+   every other shape those runs launched (A' of the suite through its
+   stored transposed slices, one certificate instance), against their
+   plain versions (exact pair partials: within 1e-15 K rowmax|A| max|x|)
+   and against torch.bmm in fp64 (within the operator's bound); two calls
+   bit-equal; the bf16 entry points' own vector slices and scale bit-equal
+   to ``vector_operands``' and at most two operations enqueued by a whole
+   call; each with its device time (a CUDA graph of 20 calls), its time
+   back to back, the whole call's, the plain version's, torch.bmm's (both
+   ways) and its bound.
 
 Each main path is driven with the launch counters set to 0 just before it
 and read just after.  The last two lines are the kernel table and
@@ -344,9 +350,19 @@ def check_back_to_back(dtype, gen, calls=50):
           f"{calls} back-to-back calls did not all give the first call's bits ({dtype})")
 
 
+#: the runtime and driver calls that put an operation on a stream
+ENQUEUE_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel", "cudaMemsetAsync",
+                 "cudaMemcpyAsync", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
 def enqueued_operations(fn, S) -> int:
     """Device operations (kernels, memsets, copies) one call of ``fn`` puts
-    on the stream, counted by torch.profiler."""
+    on the stream, counted by torch.profiler as the runtime calls that
+    enqueue them (ENQUEUE_CALLS).  The profiler's device-side records are
+    not counted: on the H100, after earlier work in the process, they lost
+    kernels of a call (a whole run of this script once counted none for a
+    call that enqueues two), while the enqueue calls stay exact; and the
+    count is held against the nodes of a CUDA graph of one call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(S)
@@ -354,13 +370,39 @@ def enqueued_operations(fn, S) -> int:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn(S)
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    calls = sum(e.count for e in prof.key_averages() if e.key in ENQUEUE_CALLS)
+    nodes = graph_operations(lambda: fn(S))
+    check(calls == nodes, f"the profiler counted {calls} enqueue calls, a CUDA graph of the call {nodes} nodes")
+    return calls
+
+
+def graph_operations(fn) -> int:
+    """The nodes of a CUDA graph that captures one call of ``fn`` (after a
+    warm call on a side stream), read by the driver's cuGraphGetNodes."""
+    import ctypes
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    count = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                                                     ctypes.byref(count))
+    check(rc == 0, f"cuGraphGetNodes failed with CUresult {rc}")
+    del graph
+    return count.value
 
 
 #: further shapes the kernels are held at: one tile, odd tile counts, two
-#: block rows to a CTA, the largest size of the repo, more instances than a wave
-EXTRA_SHAPES = ((1, 32), (2, 96), (1, 128), (16, 1024), (2, 4096), (600, 128))
+#: block rows to a CTA, one instance of the sparse path's order, the largest
+#: size of the repo, more instances than a wave (one instance alone also
+#: times its plain version)
+EXTRA_SHAPES = ((1, 32), (2, 96), (1, 128), (16, 1024), (1, 2048), (2, 4096), (600, 128))
 
 
 def phase_kernel() -> dict:
@@ -378,7 +420,7 @@ def phase_kernel() -> dict:
                 rows["cholesky", dtype, n] = row_chol
     for batch, n in EXTRA_SHAPES:
         for dtype in (torch.float32, torch.float64):
-            check_shape(batch, n, dtype, gen, plain_reps=0)
+            check_shape(batch, n, dtype, gen, plain_reps=1 if batch == 1 else 0)
     for dtype in (torch.float32, torch.float64):
         bad = -torch.eye(256, device="cuda", dtype=dtype)
         L, W = chol_inv.chol_inv(bad)
@@ -851,83 +893,145 @@ OZAKI_REPLACES = {"bf16_fwd": "madipm_tpu/ops/ozaki.py:153", "bf16_t": "madipm_t
                   "i8_fwd": "madipm_tpu/ops/ozaki.py:279", "i8_t": "madipm_tpu/ops/ozaki.py:336"}
 
 
-def ozaki_bound(entry, sm, vs, out_len) -> tuple:
+def ozaki_bound(entry, sm, out_len) -> tuple:
     """(least milliseconds, what sets it) of one entry point: the slices,
-    the vector's slices and the row scale read once, the fp64 output
-    written once; 2 S 8 m n tensor-core operations (the n8 fragment)."""
+    the vector and the row scale read once, the fp64 output written once;
+    2 S 8 m n tensor-core operations (the n8 fragment).  The bf16 entry
+    points read the fp64 vector (B, K); the int8 ones its slices (B, 8, K)."""
     B, S, m, n = sm.slices.shape
-    nbytes = (sm.slices.numel() * sm.slices.element_size() + vs.numel() * vs.element_size()
-              + sm.row_scale.numel() * 8 + B * out_len * 8)
+    K = m if entry.endswith("_t") else n
+    vector = B * K * 8 if entry.startswith("bf16") else B * ozaki.KERNEL_MAX_SLICES * K
+    nbytes = sm.slices.numel() * sm.slices.element_size() + vector + sm.row_scale.numel() * 8 + B * out_len * 8
     ops = 2.0 * B * S * 8 * m * n
     t_ops, t_bytes = ops / OZAKI_PEAK_OPS[entry.split("_")[0]], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Mean device milliseconds per call of ``fn``: ``calls`` calls captured
+    in one CUDA graph, replayed ``reps`` times between two events, so that
+    the host's time per call does not set the pace."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * calls)
+
+
+#: device operations a whole bf16 product may enqueue: the contraction, and
+#: the combine of its split partials
+OZAKI_BF16_MAX_OPS = 2
+
+
 def check_ozaki_entry(entry, A, vec, sm) -> dict:
-    """One entry point of the Ozaki kernel on the card: against its plain
-    version on the same vector slices (the pair partials are exact, so only
-    the last fp64 sum differs: <= 1e-15 K rowmax|A| max|x|) and against
-    torch.bmm in fp64 (the operator's bound, 2K 2^-8(S-1) for bf16 and
-    2K 2^-7(S-1) for int8, relative to rowmax|A| max|x|); then the times of
-    the kernel alone, the whole call (with the vector's slicing), the plain
-    version and torch.bmm, in turns."""
+    """One entry point of the Ozaki kernel on the card, against its plain
+    version on ``vector_operands``' slices of the same vector (the pair
+    partials are exact, so only the last fp64 sum differs: <= 1e-15 K
+    rowmax|A| max|x|) and against torch.bmm in fp64 (the operator's bound,
+    2K 2^-8(S-1) for bf16 and 2K 2^-7(S-1) for int8, relative to rowmax|A|
+    max|x|).  A bf16 entry point slices the vector itself: its slices and
+    scale must be bit-equal to ``vector_operands``', and a whole call
+    (``apply`` / ``apply_t``) may enqueue at most OZAKI_BF16_MAX_OPS
+    operations.  Two calls must give the same bits.  Then, in turns, the
+    kernel alone and torch.bmm (device time per call, from a CUDA graph,
+    and the time per call of back-to-back calls on the stream), the whole
+    call and the plain version (back to back)."""
     B, S, m, n = sm.slices.shape
     transposed = entry.endswith("_t")
+    bf16 = entry.startswith("bf16")
     K = m if transposed else n
+    apply = ozaki.apply_t if transposed else ozaki.apply
     vs, vscale = ozaki.vector_operands(entry, sm, vec)
-    y = ozaki.kernel_contract(entry, sm, vs, vscale)
+    if bf16:
+        kernel = lambda: ozaki.kernel_bf16(entry, sm, vec)  # noqa: E731
+        y, kslices, kscale = ozaki.kernel_bf16(entry, sm, vec, keep_slices=True)
+        torch.cuda.synchronize()
+        slices_equal = (torch.equal(kslices.view(torch.int16), vs[:, :S].contiguous().view(torch.int16))
+                        and torch.equal(kscale, vscale))
+    else:
+        kernel = lambda: ozaki.kernel_contract(entry, sm, vs, vscale)  # noqa: E731
+        y, slices_equal = kernel(), True
+    again = kernel()
     ref = ozaki.plain_contract(entry, sm, vs, vscale)
-    call = (ozaki.apply_t if transposed else ozaki.apply)(sm, vec)
+    call = apply(sm, vec)
     library = (lambda: torch.bmm(vec.unsqueeze(1), A).squeeze(1)) if transposed else \
         (lambda: torch.bmm(A, vec.unsqueeze(-1)).squeeze(-1))
     exact = library()
     torch.cuda.synchronize()
+    ops = enqueued_operations(lambda _: apply(sm, vec), None)
     rowmax = A.abs().amax(dim=-1)  # (B, m)
     scale = (rowmax.amax(dim=-1, keepdim=True) if transposed else rowmax) * vec.abs().amax(dim=-1, keepdim=True)
     err_plain = float(((y - ref).abs() / scale).max())
     err_exact = float(((y - exact).abs() / scale).max())
-    bits = 8 if entry.startswith("bf16") else 7
+    bits = 8 if bf16 else 7
     bound = 2.0 * K * 2.0 ** (-bits * (S - 1))
     label = f"ozaki {entry} S={S} at ({B}, {m}, {n})"
     log(f"{label}: relative to rowmax|A| max|x|, |kernel - plain| {err_plain:.3e} (tol 1e-15 K = "
-        f"{1e-15 * K:.3e}), |kernel - bmm| {err_exact:.3e} (bound {bound:.3e}); kernel and whole "
-        f"call equal: {torch.equal(y, call)}")
+        f"{1e-15 * K:.3e}), |kernel - bmm| {err_exact:.3e} (bound {bound:.3e}); "
+        + (f"the kernel's vector slices and scale bit-equal to vector_operands': {slices_equal}; " if bf16 else "")
+        + f"two calls bit-equal: {torch.equal(y, again)}; whole call equal: {torch.equal(y, call)}; "
+        f"operations a whole call enqueues: {ops}")
+    check(slices_equal, f"{label}: the kernel's vector slices or scale differ from vector_operands'")
     check(err_plain <= 1e-15 * K, f"{label}: the kernel disagrees with its plain version")
     check(err_exact <= bound, f"{label}: the kernel is outside the operator's bound against torch.bmm")
+    check(torch.equal(y, again), f"{label}: two calls of the kernel differ in a bit")
     check(torch.equal(y, call), f"{label}: the wrapper's call differs from the kernel on its own operands")
+    check(not bf16 or ops <= OZAKI_BF16_MAX_OPS,
+          f"{label}: a whole call enqueued {ops} operations, more than {OZAKI_BF16_MAX_OPS}")
     times = {}
-    for turn in ("kernel", "call", "plain", "library", "library", "plain", "call", "kernel"):
-        fn = {"kernel": lambda: ozaki.kernel_contract(entry, sm, vs, vscale),
-              "call": lambda: (ozaki.apply_t if transposed else ozaki.apply)(sm, vec),
-              "plain": lambda: ozaki.plain_contract(entry, sm, vs, vscale),
-              "library": library}[turn]
-        times.setdefault(turn, []).append(cuda_ms(fn, reps=2 if turn == "plain" else 10))
+    for turn in ("kernel", "library", "call", "plain", "plain", "call", "library", "kernel"):
+        if turn in ("kernel", "library"):
+            fn = kernel if turn == "kernel" else library
+            times.setdefault(turn, []).append(graph_ms(fn))
+            times.setdefault(turn + "_stream", []).append(cuda_ms(fn, reps=10))
+        else:
+            fn = (lambda: apply(sm, vec)) if turn == "call" else \
+                (lambda: ozaki.plain_contract(entry, sm, vs, vscale))
+            times.setdefault(turn, []).append(cuda_ms(fn, reps=2 if turn == "plain" else 10))
     ms = {k: sum(v) / len(v) for k, v in times.items()}
-    b_ms, b_by = ozaki_bound(entry, sm, vs, n if transposed else m)
-    log(f"{label}: kernel {ms['kernel']:.4f} ms, whole call {ms['call']:.4f} ms, plain "
-        f"{ms['plain']:.4f} ms, torch.bmm {ms['library']:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
-        f"({b_ms / ms['kernel']:.1%} of it)")
-    return dict(shape=[B, m, n], dtype=entry.split("_")[0], slices=S,
-                max_abs_err=float((y - ref).abs().max()), ms=ms["kernel"], call_ms=ms["call"],
-                plain_ms=ms["plain"], bound_ms=b_ms, bound_by=b_by, library_ms=ms["library"])
+    b_ms, b_by = ozaki_bound(entry, sm, n if transposed else m)
+    log(f"{label}: kernel {ms['kernel']:.4f} ms on the device ({ms['kernel_stream']:.4f} back to back), "
+        f"whole call {ms['call']:.4f} ms back to back ({ms['call'] - ms['kernel']:+.4f} against the kernel), "
+        f"plain {ms['plain']:.4f} ms, torch.bmm {ms['library']:.4f} ms on the device "
+        f"({ms['library_stream']:.4f} back to back; kernel / bmm {ms['kernel'] / ms['library']:.2f}), "
+        f"bound {b_ms:.4f} ms by {b_by} ({b_ms / ms['kernel']:.1%} of it)")
+    return dict(shape=[B, m, n], dtype=entry.split("_")[0], slices=S, enqueued_operations=ops,
+                max_abs_err=float((y - ref).abs().max()), ms=ms["kernel"], stream_ms=ms["kernel_stream"],
+                call_ms=ms["call"], plain_ms=ms["plain"], bound_ms=b_ms, bound_by=b_by,
+                library_ms=ms["library"], library_stream_ms=ms["library_stream"])
 
 
 @contextlib.contextmanager
 def ozaki_shapes(seen: set):
     """Adds to ``seen`` the (entry, slices' shape (B, S, m, n)) of every
-    launch of the Ozaki kernel made inside, so that each shape a main path
-    gives the kernel is held against the plain version."""
-    launch = ozaki.kernel_contract
+    product the Ozaki kernel computes inside, so that each shape a main
+    path gives the kernel is held against the plain version."""
+    product = ozaki.kernel_product
 
-    def record(entry, sm, vs, vscale):
+    def record(entry, sm, vec):
         seen.add((entry, tuple(sm.slices.shape)))
-        return launch(entry, sm, vs, vscale)
+        return product(entry, sm, vec)
 
-    ozaki.kernel_contract = record
+    ozaki.kernel_product = record
     try:
         yield seen
     finally:
-        ozaki.kernel_contract = launch
+        ozaki.kernel_product = product
 
 
 #: the LP suite's (B, m, n), where every entry point is timed for the table
@@ -979,13 +1083,14 @@ def ozaki_batch(label, models, device, options, native) -> dict:
     gaps = [abs(a.objective - b.objective) / max(1.0, abs(b.objective)) for a, b in zip(stats, native)]
     wall = stats[0].solver_time
     log(f"{label}: {sum(s.success for s in stats)}/{len(stats)} solved, iterations {iters} "
-        f"(native fp64 {[s.iter for s in native]}), wall {wall:.4f} s (native "
-        f"{native[0].solver_time:.4f} s), {sum(iters) / wall:.2f} iter/s; objectives against native "
+        f"(native fp64 {[s.iter for s in native]}), wall {wall:.4f} s against native "
+        f"{native[0].solver_time:.4f} s in this run ({wall / native[0].solver_time:.2f}x), "
+        f"{sum(iters) / wall:.2f} iter/s; objectives against native "
         f"{max(gaps):.3e} relative (worst); ozaki launches {launches}, chol_inv launches {chol_inv.launches}")
     check(all(s.success for s in stats), f"{label}: the suite did not solve {len(stats)}/{len(stats)}")
     check(all(np.all(np.isfinite(s.solution)) for s in stats), f"{label}: non-finite solutions")
     check(max(gaps) <= 1e-7, f"{label}: objectives off the native run's")
-    return dict(stats=stats, launches=launches, iters=iters, wall=wall)
+    return dict(stats=stats, launches=launches, iters=iters, wall=wall, wall_ratio=wall / native[0].solver_time)
 
 
 def phase_ozaki(device, lp_run) -> dict:
@@ -1018,6 +1123,8 @@ def phase_ozaki(device, lp_run) -> dict:
         out["cert"] = dict(ozaki.launches)
     log(f"Ozaki kernel shapes (entry, (B, S, m, n)) launched in phase 13: {sorted(seen)}")
     log(f"Ozaki certificate: 4/4 LPs at rel-KKT <= 1e-8 (worst {worst:.3e}); ozaki launches {out['cert']}")
+    log(f"Ozaki LP suite wall against the native run of this call: bf16 S=5 {out['bf16']['wall_ratio']:.2f}x, "
+        f"int8 {out['i8']['wall_ratio']:.2f}x")
     check(out["cert"]["bf16_fwd"] > 0 and out["cert"]["bf16_t"] > 0,
           "the Ozaki certificates never launched a bf16 entry point")
     out["rows"] = phase_ozaki_kernel(seen)

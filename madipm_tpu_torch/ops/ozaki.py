@@ -26,13 +26,18 @@ Differences from the JAX module:
 
 The four products take the hand-written kernel ``csrc/ozaki.cu`` for a
 CUDA tensor (its note says what bounds it and how it is laid out) and
-their plain versions, in fp64 and exact pair by pair, for a CPU tensor.
-``launches`` counts the kernel's launches by entry point.
+their plain versions, in fp64 and exact pair by pair, on
+:func:`vector_operands`' slices, for a CPU tensor.  The bf16 entry points
+take the fp64 vector and slice it on the device, bit-equal to
+:func:`vector_operands`, with the launch geometry of :func:`plan`; the
+int8 ones take :func:`vector_operands`' slices.  ``launches`` counts the
+kernel's launches by entry point.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -230,6 +235,70 @@ def plain_contract(entry: str, sm, vs: torch.Tensor, vscale: torch.Tensor) -> to
 # The kernel
 # ---------------------------------------------------------------------------
 
+# the bf16 kernel's geometry (csrc/ozaki.cu: STAGES, MAX_SPAN, VPAD,
+# smem_bytes, struct Geo)
+#: outputs (rows forward, columns transposed) of one CTA; transposed CTAs
+#: take WIDE_TILE where the grid still fills the card
+TILE = 32
+WIDE_TILE = 64
+#: blocks of a CTA's shared-memory ring, each one slice's tile x CHUNK block
+STAGES = 3
+#: most CHUNKs in one CTA's span: its vector slices stay in shared memory
+MAX_SPAN = 16
+#: bf16 padding of each vector-slice row in shared memory
+VPAD = 8
+#: the fewest CTAs a launch aims at, per SM
+CTAS_PER_SM = 2
+
+
+def smem_bytes(n_slices: int, span_chunks: int, tile: int = TILE) -> int:
+    """Dynamic shared memory of one bf16 CTA: the ring, then the vector's
+    slices over its span."""
+    return STAGES * tile * CHUNK * 2 + n_slices * (span_chunks * CHUNK + VPAD) * 2
+
+
+class Plan(NamedTuple):
+    """Launch geometry of one bf16 call."""
+
+    tile: int          # outputs of a CTA (TILE, or WIDE_TILE transposed)
+    tiles: int         # output tiles of an instance
+    split: int         # CTAs that share one tile's contraction, each a span of whole chunks
+    span_chunks: int   # CHUNKs in each span
+    smem_bytes: int    # dynamic shared memory of a CTA
+    work_doubles: int  # fp64 scratch: the split partials (B, split, OUT) and B scales; 0 at split 1
+    ctas: int          # the grid: B * tiles * split
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(B: int, n_slices: int, m: int, n: int, transposed: bool, sm_count: int) -> Plan:
+    """Geometry of a bf16 call on (B, n_slices, m, n) slices on a device
+    with ``sm_count`` SMs.  A transposed CTA takes WIDE_TILE columns (128
+    contiguous bytes of a slice row) if B * n / WIDE_TILE * (m / CHUNK)
+    CTAs reach CTAS_PER_SM per SM, else TILE.  The contraction (K = n
+    forward, m transposed) is split over the fewest CTAs that give the
+    grid CTAS_PER_SM CTAs per SM and keep each span within MAX_SPAN
+    chunks, rounded up to a divisor of K / CHUNK, so that every span is
+    the same count of whole chunks."""
+    if (B < 1 or not 1 <= n_slices <= KERNEL_MAX_SLICES or sm_count < 1 or min(m, n) < CHUNK
+            or m % CHUNK or n % CHUNK):
+        raise ValueError(f"plan: need B >= 1, 1 <= S <= {KERNEL_MAX_SLICES}, sm_count >= 1 and "
+                         f"(m, n) positive multiples of {CHUNK}; got B={B}, S={n_slices}, "
+                         f"(m, n)=({m}, {n}), sm_count={sm_count}")
+    K, out_len = (m, n) if transposed else (n, m)
+    chunks, target = K // CHUNK, CTAS_PER_SM * sm_count
+    tile = WIDE_TILE if transposed and B * (out_len // WIDE_TILE) * chunks >= target else TILE
+    tiles = out_len // tile
+    least = max(-(-target // (B * tiles)), -(-chunks // MAX_SPAN))
+    split = next(d for d in range(min(least, chunks), chunks + 1) if chunks % d == 0)
+    span = chunks // split
+    work = B * split * out_len + B if split > 1 else 0
+    return Plan(tile, tiles, split, span, smem_bytes(n_slices, span, tile), work, B * tiles * split)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 def _load():
     global _lib
@@ -237,63 +306,131 @@ def _load():
         lib = _cuda.library()
         for entry in ENTRIES:
             fn = getattr(lib, f"madipm_ozaki_{entry}")
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            if entry.startswith("bf16"):
+                fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            else:
+                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check_kernel_operands(entry: str, sm, vs: torch.Tensor, vscale: torch.Tensor):
-    """What the kernel takes; raises on anything else.  The device comes
-    last, so that a tensor off the card reaches the other checks."""
+def _check_slices(entry: str, sm):
     B, S, m, n = sm.slices.shape
+    dtype = torch.bfloat16 if entry.startswith("bf16") else torch.int8
+    if sm.slices.dtype != dtype:
+        raise ValueError(f"ozaki {entry}: the slices must be {dtype}, got {sm.slices.dtype}")
     if S > KERNEL_MAX_SLICES:
         raise ValueError(f"ozaki {entry}: the kernel takes at most {KERNEL_MAX_SLICES} slices, got {S}")
     if m % CHUNK or n % CHUNK:
         raise ValueError(f"ozaki {entry}: the kernel needs (m, n) multiples of {CHUNK}, got ({m}, {n})")
-    if not sm.slices.is_contiguous():
-        raise ValueError(f"ozaki {entry}: slices must be contiguous")
-    want = (B, KERNEL_MAX_SLICES, m if entry.endswith("_t") else n)
+    if not sm.slices.is_contiguous() or sm.slices.data_ptr() % 16:
+        raise ValueError(f"ozaki {entry}: slices must be contiguous and 16-byte aligned")
+    if tuple(sm.row_scale.shape) != (B, m):
+        raise ValueError(f"ozaki {entry}: the row scale must be ({B}, {m}), got {tuple(sm.row_scale.shape)}")
+
+
+def _check_device(entry: str, *tensors):
+    """Checked last, so that a tensor off the card reaches the other checks."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"ozaki {entry}: slices and vector must be on one CUDA device, "
+                         f"got {[str(t.device) for t in tensors]}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(fn, index, args) -> int:
+    """``fn(*args, stream)`` on device ``index``'s current stream, made the
+    current device for the call if it is not."""
+    if index is None or index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(index):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+
+
+def kernel_contract(entry: str, sm, vs: torch.Tensor, vscale: torch.Tensor) -> torch.Tensor:
+    """What :func:`plain_contract` computes, by one launch of the int8
+    entry point ``madipm_ozaki_<entry>`` on the vector's slices ``vs``
+    (B, 8, K), zero after the S, as :func:`vector_operands` makes them."""
+    if not entry.startswith("i8"):
+        raise ValueError(f"ozaki {entry}: the bf16 entry points slice the vector themselves (kernel_bf16)")
+    _check_slices(entry, sm)
+    B, S, m, n = sm.slices.shape
+    transposed = entry.endswith("_t")
+    want = (B, KERNEL_MAX_SLICES, m if transposed else n)
     if tuple(vs.shape) != want or vs.dtype != sm.slices.dtype or not vs.is_contiguous():
         raise ValueError(f"ozaki {entry}: the vector's slices must be a contiguous {want} {sm.slices.dtype} "
                          f"stack (vector_operands pads them to {KERNEL_MAX_SLICES}), got {tuple(vs.shape)} "
                          f"{vs.dtype}")
     if tuple(vscale.shape) != (B,):
         raise ValueError(f"ozaki {entry}: the vector's scale must be ({B},), got {tuple(vscale.shape)}")
-    if sm.slices.device.type != "cuda" or vs.device != sm.slices.device:
-        raise ValueError(f"ozaki {entry}: slices and vector must be on one CUDA device, "
-                         f"got {sm.slices.device} and {vs.device}")
-
-
-def kernel_contract(entry: str, sm, vs: torch.Tensor, vscale: torch.Tensor) -> torch.Tensor:
-    """What :func:`plain_contract` computes, by one launch of the kernel's
-    entry point ``madipm_ozaki_<entry>``."""
-    _check_kernel_operands(entry, sm, vs, vscale)
-    B, S, m, n = sm.slices.shape
-    transposed = entry.endswith("_t")
+    _check_device(entry, sm.slices, vs)
     vscale = vscale.to(torch.float64).contiguous()
     rs = None if transposed else sm.row_scale.to(torch.float64).contiguous()
     out = torch.empty((B, n if transposed else m), dtype=torch.float64, device=vs.device)
-    fn = getattr(_load(), f"madipm_ozaki_{entry}")
-    with torch.cuda.device(vs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(sm.slices.data_ptr(), None if rs is None else rs.data_ptr(), vs.data_ptr(),
-                vscale.data_ptr(), out.data_ptr(), B, S, m, n, stream)
+    args = (sm.slices.data_ptr(), _ptr(rs), vs.data_ptr(), vscale.data_ptr(), out.data_ptr(), B, S, m, n)
+    rc = _launch(getattr(_load(), f"madipm_ozaki_{entry}"), vs.device.index, args)
     if rc != 0:
         raise RuntimeError(f"ozaki {entry}: CUDA kernel launch failed with cudaError {rc}")
     launches[entry] += 1
     return out
 
 
+def kernel_bf16(entry: str, sm: SlicedMatrix, vec: torch.Tensor, keep_slices: bool = False):
+    """What :func:`plain_contract` computes on :func:`vector_operands`'
+    slices of ``vec``, by the bf16 entry point ``madipm_ozaki_<entry>``,
+    which slices the fp64 vector on the device: at most two device
+    operations (the contraction, and the combine of the split partials
+    when :func:`plan` splits the contraction).  With ``keep_slices`` it
+    returns (y, the vector's slices (B, S, K) bf16, its scale (B,)) as the
+    kernel made them."""
+    if not entry.startswith("bf16"):
+        raise ValueError(f"ozaki {entry}: not a bf16 entry point")
+    transposed = entry.endswith("_t")
+    _check_slices(entry, sm)
+    B, S, m, n = sm.slices.shape
+    K = m if transposed else n
+    vec = _vector(vec, K, f"ozaki {entry}", pad=not transposed).contiguous()
+    rs = sm.row_scale.to(torch.float64).contiguous()
+    _check_device(entry, sm.slices, vec, rs)
+    dev = vec.device
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    p = plan(B, S, m, n, transposed, _sm_count(index))
+    f64 = dict(dtype=torch.float64, device=dev)
+    out = torch.empty((B, n if transposed else m), **f64)
+    work = torch.empty(p.work_doubles, **f64) if p.work_doubles else None
+    vs = torch.empty((B, S, K), dtype=torch.bfloat16, device=dev) if keep_slices else None
+    vscale = torch.empty(B, **f64) if keep_slices else None
+    args = (sm.slices.data_ptr(), rs.data_ptr(), vec.data_ptr(), out.data_ptr(), _ptr(work),
+            _ptr(vs), _ptr(vscale), B, S, m, n, p.tile, p.split)
+    rc = _launch(getattr(_load(), f"madipm_ozaki_{entry}"), index, args)
+    if rc != 0:
+        raise RuntimeError(f"ozaki {entry}: CUDA kernel launch failed with cudaError {rc}")
+    launches[entry] += 1
+    return (out, vs, vscale) if keep_slices else out
+
+
+def kernel_product(entry: str, sm, vec: torch.Tensor) -> torch.Tensor:
+    """The product of entry point ``entry`` on the card: the bf16 entry
+    points slice ``vec`` themselves; the int8 ones take
+    :func:`vector_operands`' slices."""
+    if entry.startswith("bf16"):
+        return kernel_bf16(entry, sm, vec)
+    return kernel_contract(entry, sm, *vector_operands(entry, sm, vec))
+
+
 def _on_cpu(sm, vec: torch.Tensor) -> bool:
     return sm.slices.device.type == "cpu" and vec.device.type == "cpu"
 
 
-def _contract(entry: str, sm, vs: torch.Tensor, vscale: torch.Tensor) -> torch.Tensor:
+def _product(entry: str, sm, vec: torch.Tensor) -> torch.Tensor:
     """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
-    if _on_cpu(sm, vs):
-        return plain_contract(entry, sm, vs, vscale)
-    return kernel_contract(entry, sm, vs, vscale)
+    if _on_cpu(sm, vec):
+        return plain_contract(entry, sm, *vector_operands(entry, sm, vec))
+    return kernel_product(entry, sm, vec)
 
 
 # ---------------------------------------------------------------------------
@@ -306,8 +443,9 @@ def vector_operands(entry: str, sm, vec: torch.Tensor):
     plain elementwise ops (n S elements): forward x, zero-padded to the
     slices' width; transposed w = row_scale v, since A = diag(e) rec gives
     A' v = rec' (e v).  Returns (slices (B, S, K), scale (B,)); off the
-    CPU the slices are made straight into the kernel's (B, 8, K) layout,
-    zero after the S."""
+    CPU the int8 slices are made straight into the int8 kernel's (B, 8, K)
+    layout, zero after the S.  The plain version of every product, and
+    the reference of the bf16 kernel's own slicing."""
     S, m, n = sm.slices.shape[1:]
     i8 = entry.startswith("i8")
     if entry.endswith("_t"):
@@ -321,7 +459,7 @@ def vector_operands(entry: str, sm, vec: torch.Tensor):
             raise ValueError(f"matvec_i8 exactness requires contraction length n < 2^19; got {n}")
         w = _vector(vec, n, f"ozaki {entry}", pad=True)
     f = _pow2_scale(torch.amax(torch.abs(w), dim=-1))
-    rows = None if _on_cpu(sm, vec) else max(S, KERNEL_MAX_SLICES)
+    rows = max(S, KERNEL_MAX_SLICES) if i8 and not _on_cpu(sm, vec) else None
     if i8:
         return _fixed_point_slices_i8(w / (2.0 * f.unsqueeze(-1)), S, rows), 2.0 * f
     return _fixed_point_slices(w / f.unsqueeze(-1), S, rows), f
@@ -330,24 +468,24 @@ def vector_operands(entry: str, sm, vec: torch.Tensor):
 def matvec(sm: SlicedMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A x (B, m) from bf16 slices; x (B, n) fp64, zero-padded to the
     slices' padded width."""
-    return _contract("bf16_fwd", sm, *vector_operands("bf16_fwd", sm, x))
+    return _product("bf16_fwd", sm, x)
 
 
 def matvec_t(sm: SlicedMatrix, v: torch.Tensor) -> torch.Tensor:
     """y = A' v (B, npad) from the FORWARD bf16 slices (no transposed copy).
     The contraction runs over m in 128-deep exact chunks, so m must divide
     by CHUNK."""
-    return _contract("bf16_t", sm, *vector_operands("bf16_t", sm, v))
+    return _product("bf16_t", sm, v)
 
 
 def matvec_i8(sm: SlicedMatrixI8, x: torch.Tensor) -> torch.Tensor:
     """y = A x (B, m) from int8 slices (exact int32 sums: n < 2^19)."""
-    return _contract("i8_fwd", sm, *vector_operands("i8_fwd", sm, x))
+    return _product("i8_fwd", sm, x)
 
 
 def matvec_t_i8(sm: SlicedMatrixI8, v: torch.Tensor) -> torch.Tensor:
     """y = A' v (B, n) from the forward int8 slices (m < 2^19)."""
-    return _contract("i8_t", sm, *vector_operands("i8_t", sm, v))
+    return _product("i8_t", sm, v)
 
 
 def apply(sm, x: torch.Tensor) -> torch.Tensor:
