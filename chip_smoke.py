@@ -80,18 +80,18 @@ Runs, in order, and fails (non-zero exit) at the first phase that fails:
    ``fp64_matvec="ozaki", ozaki_slices=5``, then with ``"ozaki_i8"`` and
    shared slices, each 8/8 beside phase 4's native run (objectives to
    1e-7, the wall's ratio to native printed); the four known-optimum LPs
-   of phase 5 through ``"ozaki"`` at 5 slices with shared slices, at
-   rel-KKT <= 1e-8; the kernel's four entry points (bf16 and int8, A x and
-   A' v) at (8, 1024, 2048), bf16 at 5 and 7 slices and int8 at 8, and at
-   every other shape those runs launched (A' of the suite through its
-   stored transposed slices, one certificate instance), against their
-   plain versions (exact pair partials: within 1e-15 K rowmax|A| max|x|)
-   and against torch.bmm in fp64 (within the operator's bound); two calls
-   bit-equal; the bf16 entry points' own vector slices and scale bit-equal
-   to ``vector_operands``' and at most two operations enqueued by a whole
-   call; each with its device time (a CUDA graph of 20 calls), its time
-   back to back, the whole call's, the plain version's, torch.bmm's (both
-   ways) and its bound.
+   of phase 5 through ``"ozaki"`` at 5 slices and through ``"ozaki_i8"``,
+   both with shared slices, at rel-KKT <= 1e-8; the kernel's four entry
+   points (bf16 and int8, A x and A' v) at (8, 1024, 2048), bf16 at 5 and
+   7 slices and int8 at 8, and at every other shape those runs launched
+   (A' of the suite through its stored transposed slices, one certificate
+   instance), against their plain versions (exact pair partials: within
+   1e-15 K rowmax|A| max|x|) and against torch.bmm in fp64 (within the
+   operator's bound); two calls bit-equal; each entry point's own vector
+   slices and scale bit-equal to ``vector_operands``' and at most two
+   operations enqueued by a whole call; each with its device time (a CUDA
+   graph of 20 calls), its time back to back, the whole call's, the plain
+   version's, torch.bmm's (both ways) and its bound.
 
 Each main path is driven with the launch counters set to 0 just before it
 and read just after.  The last two lines are the kernel table and
@@ -895,13 +895,13 @@ OZAKI_REPLACES = {"bf16_fwd": "madipm_tpu/ops/ozaki.py:153", "bf16_t": "madipm_t
 
 def ozaki_bound(entry, sm, out_len) -> tuple:
     """(least milliseconds, what sets it) of one entry point: the slices,
-    the vector and the row scale read once, the fp64 output written once;
-    2 S 8 m n tensor-core operations (the n8 fragment).  The bf16 entry
-    points read the fp64 vector (B, K); the int8 ones its slices (B, 8, K)."""
+    the fp64 vector (B, K) and the row scale read once, the fp64 output
+    written once; 2 S 8 m n tensor-core operations (the n8 fragment).  The
+    int8 entry points took the vector's eight int8 slices (B, 8, K) before
+    they sliced it themselves: B 8 K bytes either way, the same number."""
     B, S, m, n = sm.slices.shape
     K = m if entry.endswith("_t") else n
-    vector = B * K * 8 if entry.startswith("bf16") else B * ozaki.KERNEL_MAX_SLICES * K
-    nbytes = sm.slices.numel() * sm.slices.element_size() + vector + sm.row_scale.numel() * 8 + B * out_len * 8
+    nbytes = sm.slices.numel() * sm.slices.element_size() + B * K * 8 + sm.row_scale.numel() * 8 + B * out_len * 8
     ops = 2.0 * B * S * 8 * m * n
     t_ops, t_bytes = ops / OZAKI_PEAK_OPS[entry.split("_")[0]], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -933,9 +933,9 @@ def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
     return start.elapsed_time(end) / (reps * calls)
 
 
-#: device operations a whole bf16 product may enqueue: the contraction, and
-#: the combine of its split partials
-OZAKI_BF16_MAX_OPS = 2
+#: device operations a whole product may enqueue: the contraction, and the
+#: combine of its partials
+OZAKI_MAX_OPS = 2
 
 
 def check_ozaki_entry(entry, A, vec, sm) -> dict:
@@ -944,9 +944,9 @@ def check_ozaki_entry(entry, A, vec, sm) -> dict:
     partials are exact, so only the last fp64 sum differs: <= 1e-15 K
     rowmax|A| max|x|) and against torch.bmm in fp64 (the operator's bound,
     2K 2^-8(S-1) for bf16 and 2K 2^-7(S-1) for int8, relative to rowmax|A|
-    max|x|).  A bf16 entry point slices the vector itself: its slices and
+    max|x|).  Each entry point slices the vector itself: its slices and
     scale must be bit-equal to ``vector_operands``', and a whole call
-    (``apply`` / ``apply_t``) may enqueue at most OZAKI_BF16_MAX_OPS
+    (``apply`` / ``apply_t``) may enqueue at most OZAKI_MAX_OPS
     operations.  Two calls must give the same bits.  Then, in turns, the
     kernel alone and torch.bmm (device time per call, from a CUDA graph,
     and the time per call of back-to-back calls on the stream), the whole
@@ -957,15 +957,12 @@ def check_ozaki_entry(entry, A, vec, sm) -> dict:
     K = m if transposed else n
     apply = ozaki.apply_t if transposed else ozaki.apply
     vs, vscale = ozaki.vector_operands(entry, sm, vec)
-    if bf16:
-        kernel = lambda: ozaki.kernel_bf16(entry, sm, vec)  # noqa: E731
-        y, kslices, kscale = ozaki.kernel_bf16(entry, sm, vec, keep_slices=True)
-        torch.cuda.synchronize()
-        slices_equal = (torch.equal(kslices.view(torch.int16), vs[:, :S].contiguous().view(torch.int16))
-                        and torch.equal(kscale, vscale))
-    else:
-        kernel = lambda: ozaki.kernel_contract(entry, sm, vs, vscale)  # noqa: E731
-        y, slices_equal = kernel(), True
+    wrapper = ozaki.kernel_bf16 if bf16 else ozaki.kernel_i8
+    kernel = lambda: wrapper(entry, sm, vec)  # noqa: E731
+    y, kslices, kscale = wrapper(entry, sm, vec, keep_slices=True)
+    torch.cuda.synchronize()
+    raw = torch.int16 if bf16 else torch.int8
+    slices_equal = torch.equal(kslices.view(raw), vs.view(raw)) and torch.equal(kscale, vscale)
     again = kernel()
     ref = ozaki.plain_contract(entry, sm, vs, vscale)
     call = apply(sm, vec)
@@ -983,16 +980,15 @@ def check_ozaki_entry(entry, A, vec, sm) -> dict:
     label = f"ozaki {entry} S={S} at ({B}, {m}, {n})"
     log(f"{label}: relative to rowmax|A| max|x|, |kernel - plain| {err_plain:.3e} (tol 1e-15 K = "
         f"{1e-15 * K:.3e}), |kernel - bmm| {err_exact:.3e} (bound {bound:.3e}); "
-        + (f"the kernel's vector slices and scale bit-equal to vector_operands': {slices_equal}; " if bf16 else "")
-        + f"two calls bit-equal: {torch.equal(y, again)}; whole call equal: {torch.equal(y, call)}; "
+        f"the kernel's vector slices and scale bit-equal to vector_operands': {slices_equal}; "
+        f"two calls bit-equal: {torch.equal(y, again)}; whole call equal: {torch.equal(y, call)}; "
         f"operations a whole call enqueues: {ops}")
     check(slices_equal, f"{label}: the kernel's vector slices or scale differ from vector_operands'")
     check(err_plain <= 1e-15 * K, f"{label}: the kernel disagrees with its plain version")
     check(err_exact <= bound, f"{label}: the kernel is outside the operator's bound against torch.bmm")
     check(torch.equal(y, again), f"{label}: two calls of the kernel differ in a bit")
     check(torch.equal(y, call), f"{label}: the wrapper's call differs from the kernel on its own operands")
-    check(not bf16 or ops <= OZAKI_BF16_MAX_OPS,
-          f"{label}: a whole call enqueued {ops} operations, more than {OZAKI_BF16_MAX_OPS}")
+    check(ops <= OZAKI_MAX_OPS, f"{label}: a whole call enqueued {ops} operations, more than {OZAKI_MAX_OPS}")
     times = {}
     for turn in ("kernel", "library", "call", "plain", "plain", "call", "library", "kernel"):
         if turn in ("kernel", "library"):
@@ -1043,7 +1039,8 @@ def phase_ozaki_kernel(seen: set) -> dict:
     at 5 and 7 slices, int8 at 8, and each at every (entry, shape) that
     phase 13's runs launched (``seen``): A' of the suite through its stored
     transposed slices is bf16_fwd at (8, 2048, 1024), the certificates run
-    one instance (B = 1).  Rows keyed by (entry, S, (B, m, n))."""
+    one instance (B = 1) through both variants.  Rows keyed by (entry, S,
+    (B, m, n))."""
     B, m, n = OZAKI_MAIN_SHAPE
     wanted = {(f"{variant}_{d}", (B, S, m, n)) for variant, counts in (("bf16", (5, 7)), ("i8", (8,)))
               for S in counts for d in ("fwd", "t")} | seen
@@ -1099,9 +1096,10 @@ def phase_ozaki(device, lp_run) -> dict:
     "ozaki" and 5 slices (A and A' stored: the bf16 forward entry), then
     with "ozaki_i8" and shared slices (the int8 forward and transposed
     entries); the four 1024 x 2048 known-optimum LPs through "ozaki" at 5
-    slices with shared slices (the bf16 forward and transposed entries), at
-    rel-KKT <= 1e-8; then the kernel's four entry points against their
-    plain versions and torch.bmm."""
+    slices and through "ozaki_i8", both with shared slices (the forward and
+    transposed entries of each at B = 1), at rel-KKT <= 1e-8; then the
+    kernel's four entry points against their plain versions and
+    torch.bmm."""
     native = lp_run["stats"]
     ozaki_opts = dict(BENCH_OPTIONS, fp64_matvec="ozaki", ozaki_slices=5)
     seen = set()
@@ -1112,21 +1110,25 @@ def phase_ozaki(device, lp_run) -> dict:
                                 dict(BENCH_OPTIONS, fp64_matvec="ozaki_i8", ozaki_share_slices=True), native)
         check(out["i8"]["launches"]["i8_fwd"] > 0 and out["i8"]["launches"]["i8_t"] > 0,
               "the int8 Ozaki LP suite never launched an int8 entry point")
-        ozaki.launches = dict.fromkeys(ozaki.ENTRIES, 0)
-        worst = 0.0
-        for deg in (False, True):
-            for seed in (1, 2):
-                qp, info = known_optimum_lp(1024, 2048, seed=seed + 1024, degenerate=deg)
-                worst = max(worst, certify(qp, info, device, f"{qp.name} seed {seed + 1024} ozaki S=5 shared",
-                                           **dict(CERT_OPTIONS, fp64_matvec="ozaki", ozaki_slices=5,
-                                                  ozaki_share_slices=True))[0])
-        out["cert"] = dict(ozaki.launches)
+        for key, label, opts in (("cert", "ozaki S=5 shared", dict(fp64_matvec="ozaki", ozaki_slices=5)),
+                                 ("cert_i8", "ozaki_i8 shared", dict(fp64_matvec="ozaki_i8"))):
+            ozaki.launches = dict.fromkeys(ozaki.ENTRIES, 0)
+            worst = 0.0
+            for deg in (False, True):
+                for seed in (1, 2):
+                    qp, info = known_optimum_lp(1024, 2048, seed=seed + 1024, degenerate=deg)
+                    worst = max(worst, certify(qp, info, device, f"{qp.name} seed {seed + 1024} {label}",
+                                               **dict(CERT_OPTIONS, ozaki_share_slices=True, **opts))[0])
+            out[key] = dict(ozaki.launches)
+            log(f"Ozaki certificate ({label}): 4/4 LPs at rel-KKT <= 1e-8 (worst {worst:.3e}); "
+                f"ozaki launches {out[key]}")
     log(f"Ozaki kernel shapes (entry, (B, S, m, n)) launched in phase 13: {sorted(seen)}")
-    log(f"Ozaki certificate: 4/4 LPs at rel-KKT <= 1e-8 (worst {worst:.3e}); ozaki launches {out['cert']}")
     log(f"Ozaki LP suite wall against the native run of this call: bf16 S=5 {out['bf16']['wall_ratio']:.2f}x, "
         f"int8 {out['i8']['wall_ratio']:.2f}x")
     check(out["cert"]["bf16_fwd"] > 0 and out["cert"]["bf16_t"] > 0,
           "the Ozaki certificates never launched a bf16 entry point")
+    check(out["cert_i8"]["i8_fwd"] > 0 and out["cert_i8"]["i8_t"] > 0,
+          "the int8 Ozaki certificates never launched an int8 entry point")
     out["rows"] = phase_ozaki_kernel(seen)
     return out
 
@@ -1325,6 +1327,8 @@ def main() -> int:
         row = dict(name=f"ozaki_{entry}", route="cuda", source=oz_source, path=path,
                    replaces=OZAKI_REPLACES[entry], launches=launches,
                    **oz["rows"][entry, n_slices, OZAKI_MAIN_SHAPE])
+        # launches of the four certificates (B = 1) through this entry's variant
+        row["certificate_launches"] = oz["cert" if entry.startswith("bf16") else "cert_i8"][entry]
         if entry.startswith("bf16"):
             row["at_7_slices"] = oz["rows"][entry, 7, OZAKI_MAIN_SHAPE]
         # the other shapes phase 13's runs gave this entry point

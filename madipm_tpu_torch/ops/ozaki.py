@@ -27,10 +27,10 @@ Differences from the JAX module:
 The four products take the hand-written kernel ``csrc/ozaki.cu`` for a
 CUDA tensor (its note says what bounds it and how it is laid out) and
 their plain versions, in fp64 and exact pair by pair, on
-:func:`vector_operands`' slices, for a CPU tensor.  The bf16 entry points
-take the fp64 vector and slice it on the device, bit-equal to
-:func:`vector_operands`, with the launch geometry of :func:`plan`; the
-int8 ones take :func:`vector_operands`' slices.  ``launches`` counts the
+:func:`vector_operands`' slices, for a CPU tensor.  Every entry point
+takes the fp64 vector and slices it on the device, bit-equal to
+:func:`vector_operands`, with the launch geometry of :func:`plan`: a
+product is one or two device operations.  ``launches`` counts the
 kernel's launches by entry point.
 """
 
@@ -107,22 +107,11 @@ def _pow2_scale(mx: torch.Tensor) -> torch.Tensor:
     return torch.where(mx > 0, p32.to(torch.float64), 1.0)
 
 
-def _slice_stack(v: torch.Tensor, n_slices: int, rows, dtype) -> torch.Tensor:
-    """(B, rows, ...) buffer for the slices of ``v``; rows past
-    ``n_slices`` are zero slices (the kernel's vector takes 8)."""
-    rows = rows or n_slices
-    shape = (v.shape[0], rows, *v.shape[1:])
-    if rows > n_slices:
-        return torch.zeros(shape, dtype=dtype, device=v.device)
-    return torch.empty(shape, dtype=dtype, device=v.device)
-
-
-def _fixed_point_slices(v: torch.Tensor, n_slices: int, rows=None) -> torch.Tensor:
+def _fixed_point_slices(v: torch.Tensor, n_slices: int) -> torch.Tensor:
     """``v`` (in [-1, 1]) as ``n_slices`` bf16 slices of T_BITS bits,
-    stacked at dimension 1: (B, ...) -> (B, S, ...), or (B, rows, ...)
-    with zero slices after the S.  Matrix and vector operands share this
-    loop, so their products sit on one grid."""
-    out = _slice_stack(v, n_slices, rows, torch.bfloat16)
+    stacked at dimension 1: (B, ...) -> (B, S, ...).  Matrix and vector
+    operands share this loop, so their products sit on one grid."""
+    out = torch.empty((v.shape[0], n_slices, *v.shape[1:]), dtype=torch.bfloat16, device=v.device)
     scale = 1.0
     for k in range(n_slices):
         w = torch.round(v * (2.0 ** T_BITS))
@@ -132,11 +121,11 @@ def _fixed_point_slices(v: torch.Tensor, n_slices: int, rows=None) -> torch.Tens
     return out
 
 
-def _fixed_point_slices_i8(v: torch.Tensor, n_slices: int, rows=None) -> torch.Tensor:
+def _fixed_point_slices_i8(v: torch.Tensor, n_slices: int) -> torch.Tensor:
     """``v`` (in [-1/2, 1/2]) as ``n_slices`` int8 slices of T8_BITS bits,
     stacked at dimension 1 as :func:`_fixed_point_slices` stacks them;
     round to nearest keeps every slice in [-64, 64]."""
-    out = _slice_stack(v, n_slices, rows, torch.int8)
+    out = torch.empty((v.shape[0], n_slices, *v.shape[1:]), dtype=torch.int8, device=v.device)
     for k in range(n_slices):
         w = torch.round(v * (2.0 ** T8_BITS))
         v = v * (2.0 ** T8_BITS) - w
@@ -179,8 +168,12 @@ def slice_any(A: torch.Tensor, variant: str = "bf16", n_slices=None):
     raise ValueError(f"unknown ozaki variant {variant!r}")
 
 
+def _f64(x: torch.Tensor) -> torch.Tensor:
+    return x if x.dtype == torch.float64 else x.to(torch.float64)
+
+
 def _vector(x: torch.Tensor, length: int, name: str, pad: bool) -> torch.Tensor:
-    x = x.to(torch.float64)
+    x = _f64(x)
     if x.ndim != 2:
         raise ValueError(f"{name}: expected a (B, len) vector stack, got {tuple(x.shape)}")
     if x.shape[-1] > length or (x.shape[-1] != length and not pad):
@@ -235,64 +228,89 @@ def plain_contract(entry: str, sm, vs: torch.Tensor, vscale: torch.Tensor) -> to
 # The kernel
 # ---------------------------------------------------------------------------
 
-# the bf16 kernel's geometry (csrc/ozaki.cu: STAGES, MAX_SPAN, VPAD,
-# smem_bytes, struct Geo)
-#: outputs (rows forward, columns transposed) of one CTA; transposed CTAs
-#: take WIDE_TILE where the grid still fills the card
+# the kernel's geometry (csrc/ozaki.cu: STAGES, MAX_SPAN, VPAD, smem_bytes
+# and struct Geo for bf16; I8_STAGES, I8_VPAD, smem_bytes_i8 and struct
+# Geo8 for int8)
+#: outputs (rows forward, columns transposed) of one bf16 CTA; transposed
+#: CTAs take WIDE_TILE where the grid still fills the card
 TILE = 32
 WIDE_TILE = 64
-#: blocks of a CTA's shared-memory ring, each one slice's tile x CHUNK block
+#: the tiles each (variant, transposed) takes, widest first
+TILES = {("bf16", False): (TILE,), ("bf16", True): (WIDE_TILE, TILE),
+         ("i8", False): (64, 32), ("i8", True): (128, 64, 32)}
+#: blocks of a bf16 CTA's shared-memory ring, each one slice's tile x CHUNK block
 STAGES = 3
+#: blocks of an int8 CTA's ring
+I8_STAGES = 3
 #: most CHUNKs in one CTA's span: its vector slices stay in shared memory
 MAX_SPAN = 16
-#: bf16 padding of each vector-slice row in shared memory
+#: padding of each vector-slice row in shared memory: bf16 elements, int8 bytes
 VPAD = 8
+I8_VPAD = 16
 #: the fewest CTAs a launch aims at, per SM
 CTAS_PER_SM = 2
+#: the most groups an int8 call cuts the S slices into: each group re-slices
+#: the vector and adds a partial to the combine (two beat four at B = 1)
+MAX_GROUPS = 2
 
 
-def smem_bytes(n_slices: int, span_chunks: int, tile: int = TILE) -> int:
-    """Dynamic shared memory of one bf16 CTA: the ring, then the vector's
-    slices over its span."""
+def smem_bytes(n_slices: int, span_chunks: int, tile: int = TILE, variant: str = "bf16") -> int:
+    """Dynamic shared memory of one CTA: the ring, then the vector's slices
+    over its span."""
+    if variant == "i8":
+        return I8_STAGES * tile * CHUNK + n_slices * (span_chunks * CHUNK + I8_VPAD)
     return STAGES * tile * CHUNK * 2 + n_slices * (span_chunks * CHUNK + VPAD) * 2
 
 
 class Plan(NamedTuple):
-    """Launch geometry of one bf16 call."""
+    """Launch geometry of one call."""
 
-    tile: int          # outputs of a CTA (TILE, or WIDE_TILE transposed)
+    tile: int          # outputs of a CTA (one of TILES[variant, transposed])
     tiles: int         # output tiles of an instance
-    split: int         # CTAs that share one tile's contraction, each a span of whole chunks
+    split: int         # spans of whole chunks that one tile's contraction is cut into
     span_chunks: int   # CHUNKs in each span
     smem_bytes: int    # dynamic shared memory of a CTA
-    work_doubles: int  # fp64 scratch: the split partials (B, split, OUT) and B scales; 0 at split 1
-    ctas: int          # the grid: B * tiles * split
+    work_doubles: int  # fp64 scratch: the partials (B, split groups, OUT) and B scales; 0 at one partial
+    ctas: int          # the grid: B * tiles * split * groups
+    groups: int        # equal groups of the S slices, each its own CTA (int8 only; else 1)
 
 
 @functools.lru_cache(maxsize=1024)
-def plan(B: int, n_slices: int, m: int, n: int, transposed: bool, sm_count: int) -> Plan:
-    """Geometry of a bf16 call on (B, n_slices, m, n) slices on a device
-    with ``sm_count`` SMs.  A transposed CTA takes WIDE_TILE columns (128
-    contiguous bytes of a slice row) if B * n / WIDE_TILE * (m / CHUNK)
-    CTAs reach CTAS_PER_SM per SM, else TILE.  The contraction (K = n
-    forward, m transposed) is split over the fewest CTAs that give the
-    grid CTAS_PER_SM CTAs per SM and keep each span within MAX_SPAN
-    chunks, rounded up to a divisor of K / CHUNK, so that every span is
-    the same count of whole chunks."""
+def plan(B: int, n_slices: int, m: int, n: int, transposed: bool, sm_count: int,
+         variant: str = "bf16") -> Plan:
+    """Geometry of a call on (B, n_slices, m, n) slices of ``variant``
+    ("bf16" or "i8") on a device with ``sm_count`` SMs.  A CTA takes the
+    widest of TILES[variant, transposed] whose grid, split to whole
+    chunks, can reach CTAS_PER_SM CTAs per SM (B * out / tile * K / CHUNK
+    of them), else the narrowest: a transposed row segment of 64 (bf16)
+    or 128 (int8) columns is 128 contiguous bytes of a slice row.  The
+    contraction (K = n forward, m transposed) is split over the fewest
+    CTAs that give the grid CTAS_PER_SM CTAs per SM and keep each span
+    within MAX_SPAN chunks, rounded up to a divisor of K / CHUNK, so that
+    every span is the same count of whole chunks.  Where the chunks run
+    out first (int8 at B = 1), the S slices are also cut into MAX_GROUPS
+    equal groups, each a CTA of its own whose partial is the pair sums of
+    its slices; the tile is then the widest that fills the grid with
+    them."""
     if (B < 1 or not 1 <= n_slices <= KERNEL_MAX_SLICES or sm_count < 1 or min(m, n) < CHUNK
-            or m % CHUNK or n % CHUNK):
-        raise ValueError(f"plan: need B >= 1, 1 <= S <= {KERNEL_MAX_SLICES}, sm_count >= 1 and "
-                         f"(m, n) positive multiples of {CHUNK}; got B={B}, S={n_slices}, "
-                         f"(m, n)=({m}, {n}), sm_count={sm_count}")
+            or m % CHUNK or n % CHUNK or variant not in ("bf16", "i8")):
+        raise ValueError(f"plan: need B >= 1, 1 <= S <= {KERNEL_MAX_SLICES}, sm_count >= 1, "
+                         f"(m, n) positive multiples of {CHUNK} and variant 'bf16' or 'i8'; got B={B}, "
+                         f"S={n_slices}, (m, n)=({m}, {n}), sm_count={sm_count}, variant={variant!r}")
     K, out_len = (m, n) if transposed else (n, m)
     chunks, target = K // CHUNK, CTAS_PER_SM * sm_count
-    tile = WIDE_TILE if transposed and B * (out_len // WIDE_TILE) * chunks >= target else TILE
+    groups = MAX_GROUPS if variant == "i8" and n_slices % MAX_GROUPS == 0 else 1
+    widths = TILES[variant, transposed]
+    tile = next((t for t in widths if B * (out_len // t) * chunks * groups >= target), widths[-1])
     tiles = out_len // tile
     least = max(-(-target // (B * tiles)), -(-chunks // MAX_SPAN))
     split = next(d for d in range(min(least, chunks), chunks + 1) if chunks % d == 0)
-    span = chunks // split
-    work = B * split * out_len + B if split > 1 else 0
-    return Plan(tile, tiles, split, span, smem_bytes(n_slices, span, tile), work, B * tiles * split)
+    if B * tiles * split >= target:
+        groups = 1
+    span, parts = chunks // split, split * groups
+    work = B * parts * out_len + B if parts > 1 else 0
+    return Plan(tile, tiles, split, span, smem_bytes(n_slices, span, tile, variant), work,
+                B * tiles * parts, groups)
 
 
 @functools.lru_cache(maxsize=None)
@@ -306,13 +324,19 @@ def _load():
         lib = _cuda.library()
         for entry in ENTRIES:
             fn = getattr(lib, f"madipm_ozaki_{entry}")
-            if entry.startswith("bf16"):
-                fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-            else:
-                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _check_depth(entry: str, m: int, n: int):
+    """The int8 pair sums are exact in int32 while the contraction is
+    shorter than I8_MAX_DEPTH."""
+    if entry == "i8_fwd" and n >= I8_MAX_DEPTH:
+        raise ValueError(f"matvec_i8 exactness requires contraction length n < 2^19; got {n}")
+    if entry == "i8_t" and m >= I8_MAX_DEPTH:
+        raise ValueError(f"matvec_t_i8 exactness requires m < 2^19 rows; got {m}")
 
 
 def _check_slices(entry: str, sm):
@@ -324,6 +348,7 @@ def _check_slices(entry: str, sm):
         raise ValueError(f"ozaki {entry}: the kernel takes at most {KERNEL_MAX_SLICES} slices, got {S}")
     if m % CHUNK or n % CHUNK:
         raise ValueError(f"ozaki {entry}: the kernel needs (m, n) multiples of {CHUNK}, got ({m}, {n})")
+    _check_depth(entry, m, n)
     if not sm.slices.is_contiguous() or sm.slices.data_ptr() % 16:
         raise ValueError(f"ozaki {entry}: slices must be contiguous and 16-byte aligned")
     if tuple(sm.row_scale.shape) != (B, m):
@@ -351,32 +376,34 @@ def _launch(fn, index, args) -> int:
         return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
-def kernel_contract(entry: str, sm, vs: torch.Tensor, vscale: torch.Tensor) -> torch.Tensor:
-    """What :func:`plain_contract` computes, by one launch of the int8
-    entry point ``madipm_ozaki_<entry>`` on the vector's slices ``vs``
-    (B, 8, K), zero after the S, as :func:`vector_operands` makes them."""
-    if not entry.startswith("i8"):
-        raise ValueError(f"ozaki {entry}: the bf16 entry points slice the vector themselves (kernel_bf16)")
+def _kernel(entry: str, sm, vec: torch.Tensor, keep_slices: bool):
+    """One call of ``madipm_ozaki_<entry>`` on the fp64 ``vec`` with the
+    geometry of :func:`plan`; every check comes before the device is
+    asked for its SM count."""
+    variant, transposed = entry.split("_")[0], entry.endswith("_t")
     _check_slices(entry, sm)
     B, S, m, n = sm.slices.shape
-    transposed = entry.endswith("_t")
-    want = (B, KERNEL_MAX_SLICES, m if transposed else n)
-    if tuple(vs.shape) != want or vs.dtype != sm.slices.dtype or not vs.is_contiguous():
-        raise ValueError(f"ozaki {entry}: the vector's slices must be a contiguous {want} {sm.slices.dtype} "
-                         f"stack (vector_operands pads them to {KERNEL_MAX_SLICES}), got {tuple(vs.shape)} "
-                         f"{vs.dtype}")
-    if tuple(vscale.shape) != (B,):
-        raise ValueError(f"ozaki {entry}: the vector's scale must be ({B},), got {tuple(vscale.shape)}")
-    _check_device(entry, sm.slices, vs)
-    vscale = vscale.to(torch.float64).contiguous()
-    rs = None if transposed else sm.row_scale.to(torch.float64).contiguous()
-    out = torch.empty((B, n if transposed else m), dtype=torch.float64, device=vs.device)
-    args = (sm.slices.data_ptr(), _ptr(rs), vs.data_ptr(), vscale.data_ptr(), out.data_ptr(), B, S, m, n)
-    rc = _launch(getattr(_load(), f"madipm_ozaki_{entry}"), vs.device.index, args)
+    K = m if transposed else n
+    vec = _vector(vec, K, f"ozaki {entry}", pad=not transposed).contiguous()
+    rs = _f64(sm.row_scale).contiguous()
+    _check_device(entry, sm.slices, vec, rs)
+    dev = vec.device
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    p = plan(B, S, m, n, transposed, _sm_count(index), variant)
+    f64 = dict(dtype=torch.float64, device=dev)
+    # one allocation: the output, then the partials' workspace
+    out_len = n if transposed else m
+    out = torch.empty(B * out_len + p.work_doubles, **f64)[:B * out_len].view(B, out_len)
+    work = out.data_ptr() + 8 * B * out_len if p.work_doubles else None
+    vs = torch.empty((B, S, K), dtype=sm.slices.dtype, device=dev) if keep_slices else None
+    vscale = torch.empty(B, **f64) if keep_slices else None
+    args = (sm.slices.data_ptr(), rs.data_ptr(), vec.data_ptr(), out.data_ptr(), work,
+            _ptr(vs), _ptr(vscale), B, S, m, n, p.tile, p.split, p.groups)
+    rc = _launch(getattr(_load(), f"madipm_ozaki_{entry}"), index, args)
     if rc != 0:
         raise RuntimeError(f"ozaki {entry}: CUDA kernel launch failed with cudaError {rc}")
     launches[entry] += 1
-    return out
+    return (out, vs, vscale) if keep_slices else out
 
 
 def kernel_bf16(entry: str, sm: SlicedMatrix, vec: torch.Tensor, keep_slices: bool = False):
@@ -389,37 +416,22 @@ def kernel_bf16(entry: str, sm: SlicedMatrix, vec: torch.Tensor, keep_slices: bo
     kernel made them."""
     if not entry.startswith("bf16"):
         raise ValueError(f"ozaki {entry}: not a bf16 entry point")
-    transposed = entry.endswith("_t")
-    _check_slices(entry, sm)
-    B, S, m, n = sm.slices.shape
-    K = m if transposed else n
-    vec = _vector(vec, K, f"ozaki {entry}", pad=not transposed).contiguous()
-    rs = sm.row_scale.to(torch.float64).contiguous()
-    _check_device(entry, sm.slices, vec, rs)
-    dev = vec.device
-    index = torch.cuda.current_device() if dev.index is None else dev.index
-    p = plan(B, S, m, n, transposed, _sm_count(index))
-    f64 = dict(dtype=torch.float64, device=dev)
-    out = torch.empty((B, n if transposed else m), **f64)
-    work = torch.empty(p.work_doubles, **f64) if p.work_doubles else None
-    vs = torch.empty((B, S, K), dtype=torch.bfloat16, device=dev) if keep_slices else None
-    vscale = torch.empty(B, **f64) if keep_slices else None
-    args = (sm.slices.data_ptr(), rs.data_ptr(), vec.data_ptr(), out.data_ptr(), _ptr(work),
-            _ptr(vs), _ptr(vscale), B, S, m, n, p.tile, p.split)
-    rc = _launch(getattr(_load(), f"madipm_ozaki_{entry}"), index, args)
-    if rc != 0:
-        raise RuntimeError(f"ozaki {entry}: CUDA kernel launch failed with cudaError {rc}")
-    launches[entry] += 1
-    return (out, vs, vscale) if keep_slices else out
+    return _kernel(entry, sm, vec, keep_slices)
+
+
+def kernel_i8(entry: str, sm: SlicedMatrixI8, vec: torch.Tensor, keep_slices: bool = False):
+    """:func:`kernel_bf16`'s counterpart for the int8 entry points: the
+    fp64 vector in, cut on the device into int8 slices against the scale
+    2 f, one or two device operations; with ``keep_slices`` also the
+    vector's slices (B, S, K) int8 and 2 f (B,) as the kernel made them."""
+    if not entry.startswith("i8"):
+        raise ValueError(f"ozaki {entry}: not an int8 entry point")
+    return _kernel(entry, sm, vec, keep_slices)
 
 
 def kernel_product(entry: str, sm, vec: torch.Tensor) -> torch.Tensor:
-    """The product of entry point ``entry`` on the card: the bf16 entry
-    points slice ``vec`` themselves; the int8 ones take
-    :func:`vector_operands`' slices."""
-    if entry.startswith("bf16"):
-        return kernel_bf16(entry, sm, vec)
-    return kernel_contract(entry, sm, *vector_operands(entry, sm, vec))
+    """The product of entry point ``entry`` on the card."""
+    return (kernel_bf16 if entry.startswith("bf16") else kernel_i8)(entry, sm, vec)
 
 
 def _on_cpu(sm, vec: torch.Tensor) -> bool:
@@ -442,27 +454,22 @@ def vector_operands(entry: str, sm, vec: torch.Tensor):
     """The vector's slices and scale for entry point ``entry``, sliced with
     plain elementwise ops (n S elements): forward x, zero-padded to the
     slices' width; transposed w = row_scale v, since A = diag(e) rec gives
-    A' v = rec' (e v).  Returns (slices (B, S, K), scale (B,)); off the
-    CPU the int8 slices are made straight into the int8 kernel's (B, 8, K)
-    layout, zero after the S.  The plain version of every product, and
-    the reference of the bf16 kernel's own slicing."""
+    A' v = rec' (e v).  Returns (slices (B, S, K), scale (B,)).  The plain
+    version of every product, and the reference of the kernel's own
+    slicing."""
     S, m, n = sm.slices.shape[1:]
     i8 = entry.startswith("i8")
+    _check_depth(entry, m, n)
     if entry.endswith("_t"):
-        if i8 and m >= I8_MAX_DEPTH:
-            raise ValueError(f"matvec_t_i8 exactness requires m < 2^19 rows; got {m}")
         if not i8 and m % CHUNK:
             raise ValueError(f"matvec_t requires rows divisible by {CHUNK}; got {m}")
         w = sm.row_scale * _vector(vec, m, f"ozaki {entry}", pad=False)
     else:
-        if i8 and n >= I8_MAX_DEPTH:
-            raise ValueError(f"matvec_i8 exactness requires contraction length n < 2^19; got {n}")
         w = _vector(vec, n, f"ozaki {entry}", pad=True)
     f = _pow2_scale(torch.amax(torch.abs(w), dim=-1))
-    rows = max(S, KERNEL_MAX_SLICES) if i8 and not _on_cpu(sm, vec) else None
     if i8:
-        return _fixed_point_slices_i8(w / (2.0 * f.unsqueeze(-1)), S, rows), 2.0 * f
-    return _fixed_point_slices(w / f.unsqueeze(-1), S, rows), f
+        return _fixed_point_slices_i8(w / (2.0 * f.unsqueeze(-1)), S), 2.0 * f
+    return _fixed_point_slices(w / f.unsqueeze(-1), S), f
 
 
 def matvec(sm: SlicedMatrix, x: torch.Tensor) -> torch.Tensor:
