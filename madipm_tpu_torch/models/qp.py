@@ -24,8 +24,19 @@ import torch
 
 from ..ops import ozaki
 from ..utils import comm
+from ..utils.logging import spanned
 
 INF = float("inf")
+
+#: bytes of the dense operand read by the products of :class:`TorchQP`
+#: (``matvec``, ``rmatvec``: A; ``qmatvec``: Q), each in its stored dtype
+#: and, on a mesh, this rank's block, by whatever route the product takes
+#: (an Ozaki product counts A's bytes, not its slices')
+product_bytes = 0
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _as_csr(a, m, n) -> sp.csr_matrix:
@@ -402,19 +413,25 @@ class TorchQP:
         p = comm.rank(self.group)
         return v[..., p * mb:(p + 1) * mb]
 
+    @spanned("madipm.qp.matvec")
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """A @ x per lane: (B, n) -> (B, m); through the Ozaki slices when
         they are present and x is fp64."""
+        global product_bytes
+        product_bytes += _nbytes(self.A)
         if self.A_sl is not None and x.dtype == torch.float64:
             ax = ozaki.apply(self.A_sl, self.cols(x))
         else:
             ax = torch.bmm(self.A, self.cols(x).unsqueeze(-1)).squeeze(-1)
         return ax if self.group is None else comm.all_sum(ax, self.group)
 
+    @spanned("madipm.qp.rmatvec")
     def rmatvec(self, y: torch.Tensor) -> torch.Tensor:
         """A' @ y per lane: (B, m) -> (B, n).  In fp64 it takes the stored
         transposed slices, or with shared slices (``At_sl`` None, ``A_sl``
         present) the transposed contraction of the forward ones."""
+        global product_bytes
+        product_bytes += _nbytes(self.A)
         if y.dtype == torch.float64 and self.At_sl is not None:
             aty = ozaki.apply(self.At_sl, y)
         elif y.dtype == torch.float64 and self.A_sl is not None:
@@ -480,11 +497,14 @@ class TorchQP:
             sq = comm.all_sum(sq, self.group)
         return self.row_mask & (sq > 0)
 
+    @spanned("madipm.qp.qmatvec")
     def qmatvec(self, x: torch.Tensor) -> torch.Tensor:
         """Q @ x per lane (zeros for an LP); through the Ozaki slices when
         they are present and x is fp64."""
+        global product_bytes
         if self.Q is None:
             return torch.zeros_like(x)
+        product_bytes += _nbytes(self.Q)
         if self.Q_sl is not None and x.dtype == torch.float64:
             qx = ozaki.apply(self.Q_sl, x)
         else:

@@ -44,10 +44,25 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..models.qp import TorchQP
+from ..models.qp import TorchQP, _nbytes
 from ..utils import sync
+from ..utils.logging import span, spanned
 from ..utils.options import KKTSystem, LinearSolver
 from . import block_chol, chol_inv, linalg
+
+#: work of the assembly product (``madipm.kkt.assemble``) of the dense
+#: problems, counted from its shapes: the operations of the symmetric half
+#: (NORMAL: B m(m+1) n for A D A'; CONDENSED: B n(n+1) m for A' W A; the
+#: augmented build none), and the bytes of A read once in its stored dtype
+#: plus the assembled matrix written once in the factor's
+assembly_flops = 0
+assembly_bytes = 0
+
+
+def _count_assembly(A: torch.Tensor, flops: int, out: torch.Tensor) -> None:
+    global assembly_flops, assembly_bytes
+    assembly_flops += flops
+    assembly_bytes += _nbytes(A) + _nbytes(out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,7 +194,11 @@ def _assemble_normal(prob: TorchQP, sigma, del_c, factor_dtype):
     """S = A Sigma^-1 A' - del_c I in the factor dtype, with non-live rows
     (padded, or structurally empty: diagonal <= 0) pinned to identity."""
     dinv = torch.where(prob.free_mask, 1.0 / sigma, 0.0)
-    S = prob.assemble_normal_matrix(dinv, factor_dtype)
+    with span("madipm.kkt.assemble"):
+        S = prob.assemble_normal_matrix(dinv, factor_dtype)
+    if isinstance(prob, TorchQP):
+        B, m, n = prob.A.shape
+        _count_assembly(prob.A, B * m * (m + 1) * n, S)
     dS = torch.diagonal(S, dim1=-2, dim2=-1).clone()
     live = prob.row_mask & (dS > 0)
     diag_add = torch.where(live, -del_c.to(factor_dtype), 1.0 - dS)
@@ -200,13 +219,19 @@ def _assemble_condensed(prob: TorchQP, sigma, del_c, factor_dtype):
     live = prob.live_rows()
     # gamma ~ 1e8 is folded in after the product, so that the squared
     # entries stay inside the range of a float32 factor dtype.
-    C = prob.assemble_ata(live.to(prob.dtype), factor_dtype)
-    C = C * gamma.to(factor_dtype).unsqueeze(-1)
-    torch.diagonal(C, dim1=-2, dim2=-1).add_(sigma.to(factor_dtype))
-    C = prob.add_quad(C, factor_dtype)
+    with span("madipm.kkt.assemble"):
+        C = prob.assemble_ata(live.to(prob.dtype), factor_dtype)
+        C = C * gamma.to(factor_dtype).unsqueeze(-1)
+        torch.diagonal(C, dim1=-2, dim2=-1).add_(sigma.to(factor_dtype))
+        C = prob.add_quad(C, factor_dtype)
+    if isinstance(prob, TorchQP):
+        A = prob.A if prob.group is None else prob.A_rows
+        B, m, n = A.shape
+        _count_assembly(A, B * n * (n + 1) * m, C)
     return C, gamma, live
 
 
+@spanned("madipm.kkt.assemble")
 def _assemble_augmented(prob: TorchQP, sigma, del_c, factor_dtype):
     """K = [Sigma+Q, A'; A, del_c I] per lane, masked columns and rows
     pinned: structurally empty rows get a unit pivot like padded rows (with
@@ -220,6 +245,7 @@ def _assemble_augmented(prob: TorchQP, sigma, del_c, factor_dtype):
         [torch.cat([H, A_eff.mT], dim=-1), torch.cat([A_eff, torch.diag_embed(du)], dim=-1)],
         dim=-2,
     )
+    _count_assembly(prob.A, 0, K)
     return K, live
 
 
@@ -280,13 +306,15 @@ def _factor_spd(cfg: KKTConfig, Mhat: torch.Tensor):
     """Factor the Jacobi-scaled SPD matrix of the NORMAL or CONDENSED
     system: (factor to store, ok (B,))."""
     if cfg.linear_solver == LinearSolver.CHOLESKY_INV:
-        Lc, W = chol_inv.chol_inv(Mhat)
+        with span("madipm.kkt.factor"):
+            Lc, W = chol_inv.chol_inv(Mhat)
         ok = linalg.cholesky_is_ok(Lc) & torch.all(torch.isfinite(W), dim=(-2, -1))
         return W, ok  # the inverse factor: solves are products
-    if cfg.use_pallas:
-        fac = chol_inv.cholesky(Mhat)
-    else:
-        fac = linalg.cholesky_factor(Mhat)
+    with span("madipm.kkt.factor"):
+        if cfg.use_pallas:
+            fac = chol_inv.cholesky(Mhat)
+        else:
+            fac = linalg.cholesky_factor(Mhat)
     return fac, linalg.cholesky_is_ok(fac)
 
 
@@ -388,16 +416,19 @@ def factorize(cfg: KKTConfig, prob: TorchQP, x, zl, zu, del_w, del_c, force_ok=N
             else:
                 jac = torch.ones(K.shape[:-1], dtype=fdt, device=K.device)
             if cfg.linear_solver == LinearSolver.LU:
-                Lfac, dfac = linalg.lu_factor(K)
+                with span("madipm.kkt.factor"):
+                    Lfac, dfac = linalg.lu_factor(K)
                 ok = linalg.lu_is_ok(Lfac)
             elif cfg.linear_solver == LinearSolver.LDL_INV:
-                _, dfac, Lfac = block_chol.ldl_inv(K)
+                with span("madipm.kkt.factor"):
+                    _, dfac, Lfac = block_chol.ldl_inv(K)
                 ok = (
                     torch.all(torch.isfinite(dfac) & (dfac != 0), dim=-1)
                     & torch.all(torch.isfinite(Lfac), dim=(-2, -1))
                 )
             else:
-                Lfac, dfac = linalg.ldl_factor(K)
+                with span("madipm.kkt.factor"):
+                    Lfac, dfac = linalg.ldl_factor(K)
                 ok = linalg.ldl_is_ok(Lfac, dfac)
             factors = AugmentedFactors(Lfac=Lfac, dfac=dfac, sigma=sigma,
                                        del_c=dc.to(rdtype), live=live, jac=jac)
@@ -488,6 +519,7 @@ def _spd_solve_fn(cfg: KKTConfig, factors, rdtype):
         base = _factor_solve(cfg, L)
     refine = isinstance(factors, NormalFactors) and cfg.precond_refine and factors.Smat is not None
 
+    @spanned("madipm.kkt.precond")
     def solve_fn(b):
         bf = (b * jac).to(L.dtype)
         z = base(bf)

@@ -14,6 +14,12 @@ from __future__ import annotations
 import torch
 
 from ..utils import sync
+from ..utils.logging import spanned
+
+#: trips of the fp64 Krylov loop of :func:`pcg` and :func:`pcg_flex`: one
+#: per loop body entered by the batch, whatever its lanes (not
+#: :func:`pcg_lowp` or :func:`refine`)
+pcg_trips = 0
 
 
 def cholesky_factor(S: torch.Tensor) -> torch.Tensor:
@@ -174,6 +180,7 @@ def refine(solve_fn, matvec_fn, rhs: torch.Tensor, steps: int, rtol: float = 1e-
     return x
 
 
+@spanned("madipm.linalg.pcg")
 def pcg(solve_fn, matvec_fn, rhs: torch.Tensor, max_iters: int, rtol=1e-14,
         return_residual: bool = False):
     """Preconditioned CG in fp64 with a low-precision factor as
@@ -188,6 +195,7 @@ def pcg(solve_fn, matvec_fn, rhs: torch.Tensor, max_iters: int, rtol=1e-14,
     recurrence ends the lane on that iterate.  ``return_residual=True``
     also returns the residual vector tracked with ``best_x``.
     """
+    global pcg_trips
     norm_rhs = torch.amax(torch.abs(rhs), dim=-1, keepdim=True)
     tol = rtol * torch.clamp(norm_rhs, min=1.0)
 
@@ -208,6 +216,7 @@ def pcg(solve_fn, matvec_fn, rhs: torch.Tensor, max_iters: int, rtol=1e-14,
         )
         if not sync.any_true(go):
             break
+        pcg_trips += 1
         Ap = matvec_fn(p)
         pAp = torch.sum(p * Ap, dim=-1, keepdim=True)
         alpha = rz / torch.where(pAp != 0, pAp, 1.0)
@@ -305,6 +314,7 @@ def pcg_lowp(solve_fn, matvec_fn, b: torch.Tensor, max_iters: int, rtol: float =
     return best_x
 
 
+@spanned("madipm.linalg.pcg")
 def pcg_flex(precond_fn, matvec_fn, rhs: torch.Tensor, max_iters: int, rtol=1e-14):
     """Flexible PCG in fp64 with a variable (inner-iterative)
     preconditioner, one system per lane of ``rhs`` (B, m).
@@ -315,6 +325,7 @@ def pcg_flex(precond_fn, matvec_fn, rhs: torch.Tensor, max_iters: int, rtol=1e-1
     beta is Polak-Ribiere, z_{k+1}'(r_{k+1} - r_k) / (z_k' r_k).  Lanes exit
     as in :func:`pcg` (one flag read per trip); the best iterate wins.
     """
+    global pcg_trips
     tol = rtol * torch.clamp(_amax(rhs), min=1.0)
     x = precond_fn(rhs).to(rhs.dtype)
     r = rhs - matvec_fn(x)
@@ -326,6 +337,7 @@ def pcg_flex(precond_fn, matvec_fn, rhs: torch.Tensor, max_iters: int, rtol=1e-1
         go = (i < max_iters) & (_amax(r) > tol) & (best_rn > tol)
         if not sync.any_true(go):
             break
+        pcg_trips += 1
         Ap = matvec_fn(p)
         pAp = _dot(p, Ap)
         alpha = rz / torch.where(pAp != 0, pAp, 1.0)

@@ -32,12 +32,17 @@ from ..models.sparse import (
 from ..solver import driver
 from ..solver.state import IPMState
 from ..utils import comm
+from ..utils.logging import span, spanned
 from ..utils.options import KKTSystem, load_options
 from ..utils.stats import IPMStats
 from ..utils.status import Status
 
 
 Problem = Union[TorchQP, SparseTorchQP]
+
+#: host nanoseconds spent packing and uploading the instances
+#: (``madipm.batch.pack``), added once per :func:`madipm_batch` call
+pack_ns = 0
 
 
 def stack_problems(probs: Sequence[Problem]) -> Problem:
@@ -191,6 +196,7 @@ def batched_stats(models: Sequence[QuadraticModel], scale, state: IPMState,
     return out
 
 
+@spanned("madipm.batch")
 def madipm_batch(models: Sequence[QuadraticModel], pad_multiple: int = 128,
                  dtype: torch.dtype = torch.float64, device=None, sparse: bool = False,
                  mesh=None, **options) -> List[IPMStats]:
@@ -205,6 +211,7 @@ def madipm_batch(models: Sequence[QuadraticModel], pad_multiple: int = 128,
     ranks of that axis (:func:`solve_batched`), every rank calling with the
     same models; each returns the stats of all of them, with the longest
     rank's solve time.  The device is the rank's (``mesh_device``)."""
+    global pack_ns
     _ensure_fp32_matmul()
     opt = load_options(**options)
     if mesh is not None:
@@ -216,24 +223,30 @@ def madipm_batch(models: Sequence[QuadraticModel], pad_multiple: int = 128,
     # With a mesh the bucket is packed on the host and only this rank's
     # lanes are uploaded.
     pack_device = None if mesh is not None else device
-    if sparse:
-        probs, _ = bucket_pad_sparse(models, pad_multiple=pad_multiple, dtype=dtype, device=pack_device)
-        if probs.is_qp:
-            if opt.kkt_system is None:
-                opt = dataclasses.replace(opt, kkt_system=KKTSystem.CONDENSED)
-            elif opt.kkt_system != KKTSystem.CONDENSED:
-                raise ValueError(
-                    f"sparse QP buckets require kkt_system=CONDENSED, got {opt.kkt_system}"
-                )
-    else:
-        probs, _ = bucket_pad(models, pad_multiple=pad_multiple, dtype=dtype, device=pack_device)
+    t_pack = time.perf_counter_ns()
+    with span("madipm.batch.pack"):
+        if sparse:
+            probs, _ = bucket_pad_sparse(models, pad_multiple=pad_multiple, dtype=dtype,
+                                         device=pack_device)
+            if probs.is_qp:
+                if opt.kkt_system is None:
+                    opt = dataclasses.replace(opt, kkt_system=KKTSystem.CONDENSED)
+                elif opt.kkt_system != KKTSystem.CONDENSED:
+                    raise ValueError(
+                        f"sparse QP buckets require kkt_system=CONDENSED, got {opt.kkt_system}"
+                    )
+        else:
+            probs, _ = bucket_pad(models, pad_multiple=pad_multiple, dtype=dtype, device=pack_device)
+    pack_ns += time.perf_counter_ns() - t_pack
     cfg = driver.make_config(opt, is_qp=probs.is_qp, dtype=dtype)
     _synchronize(device)
     t0 = time.time()
-    _, scale, state = solve_batched(cfg, probs, mesh=mesh)
-    _synchronize(device)
+    with span("madipm.batch.solve"):
+        _, scale, state = solve_batched(cfg, probs, mesh=mesh)
+        _synchronize(device)
     wall = time.time() - t0
     if mesh is not None:
         t = torch.tensor([wall], dtype=torch.float64, device=device)
         wall = float(comm.all_max(t, mesh.get_group("batch"))[0])
-    return batched_stats(models, scale, state, wall)
+    with span("madipm.batch.unpack"):
+        return batched_stats(models, scale, state, wall)

@@ -38,6 +38,7 @@ from ..ops import kkt as kkt_ops
 from ..ops import ozaki
 from ..ops.kkt import KKTConfig
 from ..utils import comm, sync
+from ..utils.logging import spanned
 from ..utils.options import (
     AdaptiveRegularization,
     AdaptiveStep,
@@ -312,6 +313,7 @@ def _lane_min0(v):
     return torch.clamp(torch.amin(v, dim=-1, keepdim=True), max=0.0)
 
 
+@spanned("madipm.ipm.init")
 def initialize(cfg: SolverConfig, prob: TorchQP) -> Tuple[TorchQP, ScaleInfo, IPMState]:
     dtype = prob.dtype
     free = prob.free_mask
@@ -435,6 +437,7 @@ def initialize(cfg: SolverConfig, prob: TorchQP) -> Tuple[TorchQP, ScaleInfo, IP
 # ---------------------------------------------------------------------------
 
 
+@spanned("madipm.ipm.termination")
 def update_termination(cfg: SolverConfig, prob: TorchQP, state: IPMState, ax=None, aty=None) -> IPMState:
     prob = dataclasses.replace(prob, lb=state.lb, ub=state.ub)
     x, y, zl, zu = state.x, state.y, state.zl, state.zu
@@ -499,6 +502,7 @@ def update_termination(cfg: SolverConfig, prob: TorchQP, state: IPMState, ax=Non
 # ---------------------------------------------------------------------------
 
 
+@spanned("madipm.ipm.factor")
 def _factor_phase(cfg: SolverConfig, prob: TorchQP, state: IPMState, active=None):
     """Regularization update + KKT factorization.
 
@@ -526,6 +530,7 @@ def _lane_all_finite(v):
     return torch.all(torch.isfinite(v), dim=-1, keepdim=True)
 
 
+@spanned("madipm.ipm.direction")
 def _direction_phase(cfg: SolverConfig, prob: TorchQP, state: IPMState, factors, ax, aty,
                      active=None, rhs_aff=None, return_products=False):
     """Predictor + Mehrotra corrector (+ Gondzio) solves; returns the
@@ -640,6 +645,7 @@ def _direction_phase(cfg: SolverConfig, prob: TorchQP, state: IPMState, factors,
     return dx, dy, dzl, dzu, mu_new, mu_curr, solve_bad
 
 
+@spanned("madipm.ipm.step")
 def _step_phase(cfg: SolverConfig, prob: TorchQP, state: IPMState,
                 dx, dy, dzl, dzu, mu_new, mu_curr, solve_bad,
                 del_w, del_c, reg_p, reg_d, products=None):
@@ -738,6 +744,7 @@ def iteration(cfg: SolverConfig, prob: TorchQP, state: IPMState, ax=None, aty=No
 CERT_PERIOD = 16
 
 
+@spanned("madipm.ipm.cert")
 def _refresh_cert(cfg: SolverConfig, prob: TorchQP, state: IPMState) -> IPMState:
     """Re-evaluate the least-squares infeasibility certificate; iterates
     closer to feasibility than sqrt(tol)*max(1, ||b||) get no certificate."""
@@ -746,6 +753,7 @@ def _refresh_cert(cfg: SolverConfig, prob: TorchQP, state: IPMState) -> IPMState
     return state.replace(ls_cert=K.ls_infeasibility_certificate(p, state.x, min_residual=min_res))
 
 
+@spanned("madipm.ipm.iter")
 def _loop_body(cfg: SolverConfig, prob: TorchQP, state: IPMState, ax=None, aty=None):
     """Termination check + one iteration on the lanes still REGULAR after
     it; the others keep their checked state.  With a carried (ax, aty)

@@ -1,15 +1,18 @@
-"""Leveled console + file logger and the profiler hook (the ``Logger`` and
-``profile_trace`` of ``madipm_tpu/utils/logging.py``)."""
+"""Leveled console + file logger and the profiler hooks: the ``Logger`` and
+``profile_trace`` of ``madipm_tpu/utils/logging.py``, and the program's
+named spans (:func:`span`, :func:`spanned`)."""
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import sys
 import time
 from typing import Optional, TextIO
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
 
 from .options import PrintLevel
 
@@ -78,3 +81,34 @@ def profile_trace(trace_dir: Optional[str], device=None):
                     torch.cuda.synchronize(device)
     finally:
         prof.export_chrome_trace(path)
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span("madipm.ipm.iter"): ...``: a named range around the
+    block in the trace of a recording ``torch.profiler``, which also holds
+    the CUDA runtime calls and the device's kernels, on the same clock.
+    With no profiler recording it costs one check.  The range is the
+    profiler's fast form of ``record_function`` (the one torch's compiled
+    code emits): ``record_function`` costs several times as much on the
+    host, recording or not, and at ~50 spans an iteration it stretches a
+    profiled call."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return _RecordFunctionFast(name)
+
+
+def spanned(name: str):
+    """``@spanned(name)``: every call of the function inside :func:`span`."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return inner
+
+    return wrap
