@@ -25,6 +25,14 @@ differ from the JAX package on the device, neither in what is computed:
   slots (``segment_sum`` of an out-of-range id, ``mode="drop"``), each
   lane here has one extra sink segment and one extra sink entry of S that
   are sliced off.
+
+The ELL products run inside the spans of :class:`TorchQP`'s
+(``madipm.qp.matvec``, ``.rmatvec``, ``.qmatvec``) and add the bytes they
+read from storage, values and int64 indices, to ``models.qp.product_bytes``.
+The segmented sum runs inside ``madipm.sparse.segsum`` and counts itself
+(:data:`segsum_calls`); the host build of a bucket's ELL fields and
+patterns (``parallel/batch.bucket_pad_sparse``) runs inside
+``madipm.sparse.pattern`` and adds its host time to :data:`pattern_ns`.
 """
 
 from __future__ import annotations
@@ -37,8 +45,10 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..utils.logging import spanned
 from . import native
-from .qp import QuadraticModel, _round_up
+from . import qp as _qp
+from .qp import QuadraticModel, _nbytes, _round_up
 
 #: SparseTorchQP fields that hold indices (int64 on the device)
 _INDEX_FIELDS = (
@@ -47,6 +57,16 @@ _INDEX_FIELDS = (
     "cpair_a", "cpair_b", "cpair_col", "cseg_id", "c_low", "c_up", "cseg_len",
 )
 _MASK_FIELDS = ("row_mask", "col_mask")
+
+#: host nanoseconds of the ELL and pattern build (``madipm.sparse.pattern``),
+#: added once per ``parallel/batch.bucket_pad_sparse`` call
+pattern_ns = 0
+#: calls of :func:`_segment_sum` (``madipm.sparse.segsum``), and the
+#: contributions summed and the segments written over all of them, every
+#: lane's, padded pairs and sink segments included
+segsum_calls = 0
+segsum_elems = 0
+segsum_segments = 0
 
 #: raised wherever a KKT system needs the dense Jacobian (AUGMENTED, K2.5)
 DENSE_A_MESSAGE = (
@@ -84,10 +104,15 @@ def segment_lengths(seg_id: np.ndarray, n_segments: int) -> np.ndarray:
     return np.bincount(seg_id, minlength=n_segments + 1).astype(np.int64)
 
 
+@spanned("madipm.sparse.segsum")
 def _segment_sum(contrib: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Per-lane sums of sorted segments, sink segment dropped: (B, P)
     values and (B, nnz+1) lengths -> (B, nnz).  Each segment is summed in
     one fixed order."""
+    global segsum_calls, segsum_elems, segsum_segments
+    segsum_calls += 1
+    segsum_elems += contrib.numel()
+    segsum_segments += lengths.numel()
     B, nseg = lengths.shape
     if contrib.shape[-1] == 0:
         return contrib.new_zeros((B, nseg - 1))
@@ -236,12 +261,16 @@ class SparseTorchQP:
 
     # Jacobian operator interface ---------------------------------------
 
+    @spanned("madipm.qp.matvec")
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """A @ x per lane: one gather along the ELL width and a sum."""
+        _qp.product_bytes += _nbytes(self.A_val) + _nbytes(self.A_col)
         return torch.sum(self.A_val * _gather_rows(x, self.A_col), dim=-1)
 
+    @spanned("madipm.qp.rmatvec")
     def rmatvec(self, y: torch.Tensor) -> torch.Tensor:
         """A' @ y per lane through the transposed ELL (no scatter)."""
+        _qp.product_bytes += _nbytes(self.AT_val) + _nbytes(self.AT_row)
         return torch.sum(self.AT_val * _gather_rows(y, self.AT_row), dim=-1)
 
     def row_inf_norm(self) -> torch.Tensor:
@@ -269,10 +298,12 @@ class SparseTorchQP:
 
     # Quadratic-term operator interface (consumed by K1) -----------------
 
+    @spanned("madipm.qp.qmatvec")
     def qmatvec(self, x: torch.Tensor) -> torch.Tensor:
         """Q @ x through the full-symmetric ELL (zeros for an LP)."""
         if self.Q_val is None:
             return torch.zeros_like(x)
+        _qp.product_bytes += _nbytes(self.Q_val) + _nbytes(self.Q_col)
         return torch.sum(self.Q_val * _gather_rows(x, self.Q_col), dim=-1)
 
     def scale_quad(self, obj_scale: torch.Tensor) -> "SparseTorchQP":

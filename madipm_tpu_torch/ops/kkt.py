@@ -50,11 +50,12 @@ from ..utils.logging import span, spanned
 from ..utils.options import KKTSystem, LinearSolver
 from . import block_chol, chol_inv, linalg
 
-#: work of the assembly product (``madipm.kkt.assemble``) of the dense
-#: problems, counted from its shapes: the operations of the symmetric half
+#: work of the assembly product (``madipm.kkt.assemble``), counted from
+#: its shapes.  Dense problems: the operations of the symmetric half
 #: (NORMAL: B m(m+1) n for A D A'; CONDENSED: B n(n+1) m for A' W A; the
 #: augmented build none), and the bytes of A read once in its stored dtype
-#: plus the assembled matrix written once in the factor's
+#: plus the assembled matrix written once in the factor's.  ELL problems:
+#: the pair-list assembly (:func:`_count_pair_assembly`)
 assembly_flops = 0
 assembly_bytes = 0
 
@@ -63,6 +64,22 @@ def _count_assembly(A: torch.Tensor, flops: int, out: torch.Tensor) -> None:
     global assembly_flops, assembly_bytes
     assembly_flops += flops
     assembly_bytes += _nbytes(A) + _nbytes(out)
+
+
+def _count_pair_assembly(pair_a: torch.Tensor, seg_len: torch.Tensor, out: torch.Tensor) -> None:
+    """The pair-list assembly of a SparseTorchQP (``models/sparse``): B
+    lanes of P pairs (padded ones included) into nnz entries of the lower
+    triangle.  Flops: two multiplies and one add per pair, 3 B P.  Bytes,
+    with i the index size (int64) and f the factor dtype's: the three
+    index arrays and the three values they gather, 3 B P (i + f); the
+    segment lengths, B (nnz + 1) i; the sums written into S at each entry
+    and its mirror, 2 B nnz f."""
+    global assembly_flops, assembly_bytes
+    B, P = pair_a.shape
+    nnz = seg_len.shape[-1] - 1
+    i, f = pair_a.element_size(), out.element_size()
+    assembly_flops += 3 * B * P
+    assembly_bytes += 3 * B * P * (i + f) + _nbytes(seg_len) + 2 * B * nnz * f
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,6 +216,8 @@ def _assemble_normal(prob: TorchQP, sigma, del_c, factor_dtype):
     if isinstance(prob, TorchQP):
         B, m, n = prob.A.shape
         _count_assembly(prob.A, B * m * (m + 1) * n, S)
+    else:
+        _count_pair_assembly(prob.pair_a, prob.seg_len, S)
     dS = torch.diagonal(S, dim1=-2, dim2=-1).clone()
     live = prob.row_mask & (dS > 0)
     diag_add = torch.where(live, -del_c.to(factor_dtype), 1.0 - dS)
@@ -228,6 +247,8 @@ def _assemble_condensed(prob: TorchQP, sigma, del_c, factor_dtype):
         A = prob.A if prob.group is None else prob.A_rows
         B, m, n = A.shape
         _count_assembly(A, B * n * (n + 1) * m, C)
+    else:
+        _count_pair_assembly(prob.cpair_a, prob.cseg_len, C)
     return C, gamma, live
 
 

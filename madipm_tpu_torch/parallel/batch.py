@@ -19,6 +19,8 @@ import numpy as np
 import torch
 
 from ..api import _ensure_fp32_matmul, _synchronize, default_device
+from ..models import native
+from ..models import sparse as sparse_model
 from ..models.qp import QuadraticModel, TorchQP, _round_up, pad_to_device, slack_form
 from ..models.sparse import (
     PATTERN_FIELDS,
@@ -87,30 +89,36 @@ def bucket_pad_sparse(models: Sequence[QuadraticModel], pad_multiple: int = 128,
     assembly drops (``models/sparse._pad_pattern``).  A bucket holding any
     QP is packed for K1 (CONDENSED), with an explicit zero Q for its LPs.
     The shared widths come from the nonzero counts, so each lane's pattern
-    is built once."""
+    is built once.  The host build, from the slack forms to the stacked
+    arrays, runs inside ``madipm.sparse.pattern`` and adds its time to
+    ``models.sparse.pattern_ns``; the upload does not."""
     slacked = [slack_form(m) for m in models]
-    kkt = "condensed" if any(s.is_qp for s in slacked) else "normal"
-    m_pad = max(_round_up(s.ncon, pad_multiple) for s in slacked)
-    n_pad = max(_round_up(s.nvar, pad_multiple) for s in slacked)
-    clean = [_clean_csr(s.A) for s in slacked]
-    widths = dict(
-        ell_k=max(ell_width(np.diff(A.indptr)) for A in clean),
-        ell_kt=max(ell_width(np.bincount(A.indices, minlength=A.shape[1])) for A in clean),
-    )
-    if kkt == "condensed":
-        widths["ell_kq"] = max(
-            (ell_width(np.diff(_clean_csr(s.Q).indptr)) for s in slacked if s.is_qp), default=8
+    native.available()  # the library's one-off load or build is not packing
+    t0 = time.perf_counter_ns()
+    with span("madipm.sparse.pattern"):
+        kkt = "condensed" if any(s.is_qp for s in slacked) else "normal"
+        m_pad = max(_round_up(s.ncon, pad_multiple) for s in slacked)
+        n_pad = max(_round_up(s.nvar, pad_multiple) for s in slacked)
+        clean = [_clean_csr(s.A) for s in slacked]
+        widths = dict(
+            ell_k=max(ell_width(np.diff(A.indptr)) for A in clean),
+            ell_kt=max(ell_width(np.bincount(A.indices, minlength=A.shape[1])) for A in clean),
         )
-    packed = [pack_sparse(s, m_pad=m_pad, n_pad=n_pad, kkt=kkt, **widths) for s in slacked]
-    names = PATTERN_FIELDS[kkt]
-    dst_oob = m_pad * m_pad if kkt == "normal" else n_pad * n_pad
-    p_size = max(f[names[0]].size for f in packed)
-    s_size = max(f[names[4]].size for f in packed)
-    for f in packed:
-        padded = _pad_pattern(NormalPattern(*(f[k] for k in names)), p_size, s_size, dst_oob)
-        f.update(zip(names, padded))
-    stacked = {k: None if packed[0][k] is None else np.stack([f[k] for f in packed])
-               for k in packed[0]}
+        if kkt == "condensed":
+            widths["ell_kq"] = max(
+                (ell_width(np.diff(_clean_csr(s.Q).indptr)) for s in slacked if s.is_qp), default=8
+            )
+        packed = [pack_sparse(s, m_pad=m_pad, n_pad=n_pad, kkt=kkt, **widths) for s in slacked]
+        names = PATTERN_FIELDS[kkt]
+        dst_oob = m_pad * m_pad if kkt == "normal" else n_pad * n_pad
+        p_size = max(f[names[0]].size for f in packed)
+        s_size = max(f[names[4]].size for f in packed)
+        for f in packed:
+            padded = _pad_pattern(NormalPattern(*(f[k] for k in names)), p_size, s_size, dst_oob)
+            f.update(zip(names, padded))
+        stacked = {k: None if packed[0][k] is None else np.stack([f[k] for f in packed])
+                   for k in packed[0]}
+    sparse_model.pattern_ns += time.perf_counter_ns() - t0
     return SparseTorchQP.from_numpy(stacked, device=device, dtype=dtype), slacked
 
 
