@@ -9,12 +9,15 @@ dimension (one lane per instance, where the JAX package used ``vmap``),
 with the same fields and the same masks, so that both packages compute on
 the same padded data.  With a column group (``parallel/schur.shard_columns``)
 a TorchQP is one rank's part of a problem split over a mesh axis: its
-products end in the collectives of ``utils/comm.py``.
+products end in the collectives of ``utils/comm.py``.  :func:`pack_lanes`
+builds one from host models: their nonzeros are uploaded, and A and Q are
+made dense on the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from functools import cached_property
 from typing import Optional
 
@@ -542,6 +545,142 @@ class TorchQP:
         return C + Qf
 
 
+#: byte alignment of each field in a staging buffer of :func:`pack_lanes`
+#: (a typed view needs an offset that is a multiple of its element size)
+_STAGE_ALIGN = 256
+_TORCH_DTYPE = {np.dtype(np.float64): torch.float64, np.dtype(np.int32): torch.int32,
+                np.dtype(np.bool_): torch.bool}
+
+
+class _Layout:
+    """Fields ``(name, dtype, count)`` laid end to end in one flat byte
+    buffer, each at an aligned offset, so that one copy moves them all and
+    each is a typed view of the buffer at either end of the copy."""
+
+    def __init__(self, fields):
+        self.spans, off = {}, 0
+        for name, dt, count in fields:
+            dt = np.dtype(dt)
+            self.spans[name] = (off, dt, count)
+            off = _round_up(off + count * dt.itemsize, _STAGE_ALIGN)
+        self.nbytes = off
+
+    def view(self, buf, name):
+        """Field ``name`` of ``buf`` (a numpy or torch byte buffer)."""
+        off, dt, count = self.spans[name]
+        part = buf[off:off + count * dt.itemsize]
+        return part.view(dt) if isinstance(part, np.ndarray) else part.view(_TORCH_DTYPE[dt])
+
+
+def _csr_parts(M):
+    """(values, column indices, row counts) of a sparse matrix as canonical
+    CSR.  The duplicates of a non-canonical one are summed in storage order
+    from 0.0, as ``toarray`` sums them, so that both give the same bits."""
+    M = M.tocsr()
+    if M.has_canonical_format:
+        return M.data, M.indices, np.diff(M.indptr)
+    rows, cols = M.shape
+    keys = np.repeat(np.arange(rows, dtype=np.int64), np.diff(M.indptr)) * cols + M.indices
+    keys, inv = np.unique(keys, return_inverse=True)
+    vals = np.zeros(keys.size)
+    np.add.at(vals, inv, M.data)
+    return vals, keys % cols, np.bincount(keys // cols, minlength=rows)
+
+
+def _scatter(vals: torch.Tensor, cols: torch.Tensor, counts: torch.Tensor, shape,
+             dtype: torch.dtype) -> torch.Tensor:
+    """The dense (B, rows, width) array of CSR nonzeros whose row counts,
+    lane after lane, are ``counts`` (B * rows): each value added to the
+    zero of its slot, as ``toarray`` adds it.  The slots are distinct, so
+    the result does not depend on the order of the additions."""
+    out = torch.zeros(math.prod(shape), dtype=dtype, device=vals.device)
+    pos = torch.repeat_interleave(counts.long(), output_size=vals.numel())  # lane * rows + row
+    out.index_add_(0, pos.mul_(shape[-1]).add_(cols), vals.to(dtype))
+    return out.view(shape)
+
+
+def pack_lanes(models, m_pad: int, n_pad: int, dtype: torch.dtype = torch.float64,
+               device=None):
+    """Pack host equality-form models, all LPs or all QPs, into one padded
+    TorchQP with a lane each, of shape (m_pad, n_pad).
+
+    Every lane's nonzeros of A (and Q) go into one host buffer (values,
+    column indices, row counts), its vectors and masks into another, each
+    pinned for a CUDA target; each buffer is uploaded in one copy, and A
+    and Q are scattered into zeros on the device.  The result equals, bit
+    for bit, the fields padded on the host: padded columns are pinned (lb =
+    ub = 0, masked out); padded rows get ``0 x = 0`` and are masked out of
+    every reduction.
+
+    Returns the TorchQP and the size in bytes of each staged buffer, one
+    per host-to-device copy.
+    """
+    B = len(models)
+    for qp in models:
+        if np.any(qp.lcon != qp.ucon):
+            raise ValueError("pad_to_device requires equality-only constraints; run slack_form first")
+        if m_pad < qp.ncon or n_pad < qp.nvar:
+            raise ValueError("padded shape smaller than problem")
+    if len({qp.is_qp for qp in models}) != 1:
+        raise ValueError(
+            f"all problems must share a padded shape, got {sorted({(m_pad, n_pad, q.is_qp) for q in models})}"
+        )
+    mats = [("A", m_pad, n_pad, [_csr_parts(qp.A) for qp in models])]
+    if models[0].is_qp:
+        mats.append(("Q", n_pad, n_pad, [_csr_parts(qp.Q) for qp in models]))
+    nz_fields = []
+    for name, rows, _, lanes in mats:
+        nnz = sum(v.size for v, _, _ in lanes)
+        nz_fields += [(name + "_val", np.float64, nnz), (name + "_col", np.int32, nnz),
+                      (name + "_cnt", np.int32, B * rows)]
+    nz = _Layout(nz_fields)
+    vec = _Layout([(k, np.float64, B * n_pad) for k in ("c", "lb", "ub", "x0")]
+                  + [(k, np.float64, B * m_pad) for k in ("b", "y0")]
+                  + [("c0", np.float64, B), ("row_mask", np.bool_, B * m_pad),
+                     ("col_mask", np.bool_, B * n_pad)])
+    device = torch.device(device) if device is not None else torch.device("cpu")
+    pinned = device.type == "cuda"
+    nz_host = torch.empty(nz.nbytes, dtype=torch.uint8, pin_memory=pinned)
+    vec_host = torch.zeros(vec.nbytes, dtype=torch.uint8, pin_memory=pinned)
+
+    raw = nz_host.numpy()
+    for name, rows, _, lanes in mats:
+        val, col = nz.view(raw, name + "_val"), nz.view(raw, name + "_col")
+        cnt = nz.view(raw, name + "_cnt").reshape(B, rows)
+        o = 0
+        for i, (v, j, c) in enumerate(lanes):
+            val[o:o + v.size] = v
+            col[o:o + v.size] = j
+            o += v.size
+            cnt[i, :c.size] = c
+            cnt[i, c.size:] = 0
+    raw = vec_host.numpy()
+    lanes_of = {k: vec.view(raw, k).reshape(B, -1) for k in vec.spans}
+    for i, qp in enumerate(models):
+        m, n = qp.ncon, qp.nvar
+        for k, v in (("c", qp.c), ("lb", qp.lvar), ("ub", qp.uvar), ("x0", qp.x0)):
+            lanes_of[k][i, :n] = v
+        lanes_of["b"][i, :m] = qp.lcon
+        lanes_of["y0"][i, :m] = qp.y0
+        lanes_of["c0"][i] = qp.c0
+        lanes_of["row_mask"][i, :m] = True
+        lanes_of["col_mask"][i, :n] = True
+
+    nz_dev = nz_host.to(device, non_blocking=pinned)
+    vec_dev = vec_host.to(device, non_blocking=pinned)
+    dense = {
+        name: _scatter(nz.view(nz_dev, name + "_val"), nz.view(nz_dev, name + "_col"),
+                       nz.view(nz_dev, name + "_cnt"), (B, rows, width), dtype)
+        for name, rows, width, _ in mats
+    }
+    # a tensor of its own per field: views would tie every field to the one
+    # byte buffer, seen as float64 and as bool at once
+    kw = {k: vec.view(vec_dev, k).view(B, -1).to(torch.bool if k in _MASK_FIELDS else dtype, copy=True)
+          for k in vec.spans}
+    prob = TorchQP(A=dense["A"], Q=dense.get("Q"), **kw)
+    return prob, [nz.nbytes, vec.nbytes]
+
+
 def pad_to_device(
     qp: QuadraticModel,
     dtype: torch.dtype = torch.float64,
@@ -550,43 +689,12 @@ def pad_to_device(
     n_pad: Optional[int] = None,
     device=None,
 ) -> TorchQP:
-    """Pack a host equality-form model into a one-lane padded TorchQP.
+    """Pack a host equality-form model into a one-lane padded TorchQP
+    (:func:`pack_lanes`).
 
     Padded columns are pinned (lb = ub = 0, masked out); padded rows get
     ``0 x = 0`` and are masked out of every reduction.
     """
-    if np.any(qp.lcon != qp.ucon):
-        raise ValueError("pad_to_device requires equality-only constraints; run slack_form first")
-    m, n = qp.ncon, qp.nvar
-    mp = m_pad if m_pad is not None else _round_up(m, pad_multiple)
-    np_ = n_pad if n_pad is not None else _round_up(n, pad_multiple)
-    if mp < m or np_ < n:
-        raise ValueError("padded shape smaller than problem")
-
-    A = np.zeros((mp, np_), dtype=np.float64)
-    A[:m, :n] = qp.A.toarray()
-    c = np.zeros(np_)
-    c[:n] = qp.c
-    b = np.zeros(mp)
-    b[:m] = qp.lcon
-    lb = np.zeros(np_)
-    ub = np.zeros(np_)
-    lb[:n] = qp.lvar
-    ub[:n] = qp.uvar
-    x0 = np.zeros(np_)
-    x0[:n] = qp.x0
-    y0 = np.zeros(mp)
-    y0[:m] = qp.y0
-    row_mask = np.zeros(mp, dtype=bool)
-    row_mask[:m] = True
-    col_mask = np.zeros(np_, dtype=bool)
-    col_mask[:n] = True
-    Q = None
-    if qp.Q is not None:
-        Q = np.zeros((np_, np_), dtype=np.float64)
-        Q[:n, :n] = qp.Q.toarray()
-    fields = dict(
-        c=c, A=A, b=b, lb=lb, ub=ub, Q=Q, c0=np.float64(qp.c0),
-        row_mask=row_mask, col_mask=col_mask, x0=x0, y0=y0,
-    )
-    return TorchQP.from_numpy(fields, device=device, dtype=dtype)
+    mp = m_pad if m_pad is not None else _round_up(qp.ncon, pad_multiple)
+    np_ = n_pad if n_pad is not None else _round_up(qp.nvar, pad_multiple)
+    return pack_lanes([qp], mp, np_, dtype=dtype, device=device)[0]

@@ -21,7 +21,7 @@ import torch
 from ..api import _ensure_fp32_matmul, _synchronize, default_device
 from ..models import native
 from ..models import sparse as sparse_model
-from ..models.qp import QuadraticModel, TorchQP, _round_up, pad_to_device, slack_form
+from ..models.qp import QuadraticModel, TorchQP, _round_up, pack_lanes, slack_form
 from ..models.sparse import (
     PATTERN_FIELDS,
     NormalPattern,
@@ -45,6 +45,10 @@ Problem = Union[TorchQP, SparseTorchQP]
 #: host nanoseconds spent packing and uploading the instances
 #: (``madipm.batch.pack``), added once per :func:`madipm_batch` call
 pack_ns = 0
+#: bytes of the host buffers that :func:`bucket_pad` hands to the device,
+#: and the number of host-to-device copies it makes (the dense route)
+upload_bytes = 0
+uploads = 0
 
 
 def stack_problems(probs: Sequence[Problem]) -> Problem:
@@ -69,14 +73,18 @@ def stack_problems(probs: Sequence[Problem]) -> Problem:
 
 def bucket_pad(models: Sequence[QuadraticModel], pad_multiple: int = 128,
                dtype: torch.dtype = torch.float64, device=None):
-    """Slack-form + pad a set of models to one common bucket shape."""
+    """Slack-form + pad a set of models to one common bucket shape, packed
+    from their nonzeros in one piece (``models.qp.pack_lanes``: two
+    host-to-device copies, whatever the number of lanes, which
+    :data:`upload_bytes` and :data:`uploads` count)."""
+    global upload_bytes, uploads
     slacked = [slack_form(m) for m in models]
     m_pad = max(_round_up(s.ncon, pad_multiple) for s in slacked)
     n_pad = max(_round_up(s.nvar, pad_multiple) for s in slacked)
-    probs = [
-        pad_to_device(s, dtype=dtype, m_pad=m_pad, n_pad=n_pad, device=device) for s in slacked
-    ]
-    return stack_problems(probs), slacked
+    probs, staged = pack_lanes(slacked, m_pad, n_pad, dtype=dtype, device=device)
+    upload_bytes += sum(staged)
+    uploads += len(staged)
+    return probs, slacked
 
 
 def bucket_pad_sparse(models: Sequence[QuadraticModel], pad_multiple: int = 128,
